@@ -37,9 +37,12 @@
 //
 // Exactness. Integer semantics are those of _decode_tile (int32, arithmetic
 // right shifts -- what nvcc does for signed >>, round-half-up at PREC). The
-// epilogue is compared bit for bit with the unfused per-op float versions,
-// so it uses the _rn intrinsics (never contracted into FMAs) and an IEEE
-// division; the build also passes --fmad=false and never --use_fast_math.
+// epilogue is compared bit for bit with the JAX engine's jitted step, where
+// XLA fuses each multiply that feeds an add into one fused multiply-add: the
+// smoothing prev + alpha*(cur - prev) and the ramp g0 + slope*t are
+// __fmaf_rn here, every other op a separately rounded _rn intrinsic, the
+// normalisation an IEEE division. The build passes --fmad=false, so nvcc
+// contracts nothing else, and never --use_fast_math.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -140,10 +143,10 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
           int q8 = v;
           if (DSP) {
             const float f = norm8(v);
-            float o = __fadd_rn(prevf, __fmul_rn(alpha, __fsub_rn(f, prevf)));
+            float o = __fmaf_rn(alpha, __fsub_rn(f, prevf), prevf);
             if (GAIN) {
               const float t = static_cast<float>((b0 + j) * 8 + k);
-              o = __fmul_rn(o, __fadd_rn(g0, __fmul_rn(gs, t)));
+              o = __fmul_rn(o, __fmaf_rn(gs, t, g0));
             }
             o = __fmul_rn(o, o < 0.0f ? 128.0f : 127.0f);
             o = fminf(fmaxf(o, -128.0f), 127.0f);

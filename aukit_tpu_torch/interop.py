@@ -1,9 +1,12 @@
-"""Carry DFPWM lane state across from the JAX package (``aukit_tpu``).
+"""Carry lane state across from the JAX package (``aukit_tpu``).
 
 The JAX ``DfpwmState`` is a pytree of five int32[L] arrays; as numpy arrays,
 in leaf order (``codecs.dfpwm.FIELDS``), they map one to one onto the port's
-``DfpwmState`` tensors. Engine checkpoints need no conversion: both engines
-write the same keys and numpy types, and each restores the other's.
+``DfpwmState`` tensors. The block-codec kernels' states are tuples of int32
+arrays in both packages: IMA (predictor, step_index), int32[L] each; MS
+ADPCM (sample1, sample2, delta), int32[L] each; QOA (history, weights),
+int32[L, 4] each. Engine checkpoints need no conversion: both engines write
+the same keys and numpy types, and each restores the other's.
 """
 
 from __future__ import annotations
@@ -20,10 +23,24 @@ def dfpwm_state_from_numpy(leaves, device="cpu") -> DfpwmState:
     leaves = list(leaves)
     if len(leaves) != len(FIELDS):
         raise ValueError(f"expected {len(FIELDS)} state arrays, got {len(leaves)}")
-    return DfpwmState(*(torch.tensor(np.asarray(a, np.int32), device=device)
-                        for a in leaves))
+    return DfpwmState(*kernel_state_from_numpy(leaves, device))
 
 
 def dfpwm_state_to_numpy(state: DfpwmState) -> list[np.ndarray]:
     """DfpwmState -> five int32[L] numpy arrays in JAX leaf order."""
-    return [leaf.cpu().numpy().astype(np.int32, copy=False) for leaf in state.leaves()]
+    return kernel_state_to_numpy(state.leaves())
+
+
+def kernel_state_from_numpy(leaves, device="cpu") -> tuple[torch.Tensor, ...]:
+    """A block kernel's state as int32 numpy arrays, in the JAX wrapper's
+    order -> the tensors the port's kernel takes and returns: IMA
+    (predictor, step_index), MS ADPCM (sample1, sample2, delta), QOA
+    (history, weights)."""
+    return tuple(torch.tensor(np.asarray(a, np.int32), device=device) for a in leaves)
+
+
+def kernel_state_to_numpy(state) -> list[np.ndarray]:
+    """A kernel's state (a tuple of int32 tensors) -> int32 numpy arrays in
+    the same order, as the JAX wrappers return them."""
+    return [leaf.cpu().numpy().astype(np.int32, copy=False) for leaf in state]
+

@@ -3,13 +3,14 @@
 At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface under
 ``aukit_tpu_torch/_build/`` and loaded with ``ctypes``. The library's file
-name carries a hash of the sources and the flags, so an edited source is
-rebuilt on its next use. Nothing here runs at import: the CPU-only
-environment that runs the tests has no ``nvcc``.
+name carries a hash of the sources (headers included) and the flags, so an
+edited source is rebuilt on its next use. Nothing here runs at import: the
+CPU-only environment that runs the tests has no ``nvcc``.
 
-``--fmad=false`` is part of the contract: the fused DSP epilogue is compared
-bit for bit with unfused per-op float code, and a contracted ``a*b+c`` would
-flip int8 outputs. Never add ``--use_fast_math``.
+``--fmad=false`` is part of the contract: the float code is compared bit for
+bit with the JAX engine's, which fuses exactly the multiply-adds the kernels
+write as ``__fmaf_rn``; any other ``a*b+c`` that nvcc contracted would flip
+int8 outputs. Never add ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -30,11 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 # entry point -> argtypes; pointers and the stream are c_void_p
 _SIGNATURES = {
     "aukit_dfpwm_decode": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_dfpwm_decode_dsp": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                                ctypes.c_float, _P, _P, _P, _P),
+    "aukit_ima_decode": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
+    "aukit_msadpcm_decode": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
+    "aukit_qoa_lms": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
+    "aukit_fma": (_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P),
 }
 
 
@@ -51,7 +57,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SRC_DIR.glob("*.cu")):
+    for src in sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libaukit_kernels_{h.hexdigest()[:16]}.so"

@@ -17,6 +17,8 @@ import torch
 
 from ..codecs.dfpwm import FIELDS, DfpwmState, decode_samples, norm8
 from . import _build
+from ._wrap import check_lane_vector, stream_of
+from .fma_cuda import fma_ref
 
 # -- plain versions ------------------------------------------------------------------
 
@@ -36,18 +38,19 @@ def dfpwm_decode_dsp_ref(bytes_u8: torch.Tensor, state: DfpwmState, alpha: float
     (/128 | /127) and smoothed as ``prev + alpha*(cur - prev)``, where prev
     starts as the normalised incoming ``lowpass`` state. It is then scaled by
     ``g0 + slope*t`` when ``gain = (g0, slope)`` is given, scaled to int8,
-    clipped and truncated. Lanes whose ``mask`` is False emit zeros, but
-    their state still advances."""
+    clipped and truncated. Each multiply feeding an add is one fused
+    multiply-add (``fma_ref``), as in the JAX engine's jitted step. Lanes
+    whose ``mask`` is False emit zeros, but their state still advances."""
     dfpwm_decode_dsp_ref.calls += 1
     lp0 = state.lowpass
     raw, state = decode_samples(bytes_u8, state)  # [T, L]
     f = norm8(raw.t())
     prev = torch.cat([norm8(lp0)[:, None], f[:, :-1]], dim=1)
-    out = prev + float(np.float32(alpha)) * (f - prev)
+    out = fma_ref(alpha, f - prev, prev)
     if gain is not None:
         g0, gslope = gain
         t = torch.arange(out.shape[1], dtype=torch.float32, device=out.device)
-        out = out * (g0[:, None] + gslope[:, None] * t)
+        out = out * fma_ref(gslope[:, None], t, g0[:, None])
     out = out * torch.where(out < 0, 128.0, 127.0)
     out = out.clamp(-128.0, 127.0).to(torch.int8)
     if mask is not None:
@@ -76,14 +79,6 @@ def _check_inputs(bytes_u8: torch.Tensor, state: DfpwmState):
                              f"{list(leaf.shape)} on {leaf.device}")
 
 
-def _check_lane_vector(name: str, t: torch.Tensor, dtype, like: torch.Tensor):
-    if t.dtype != dtype or tuple(t.shape) != (like.shape[0],) or t.device != like.device:
-        raise ValueError(f"{name} must be {dtype}[{like.shape[0]}] on {like.device}, "
-                         f"got {t.dtype}{list(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch_args(bytes_u8: torch.Tensor, state: DfpwmState):
     if not bytes_u8.is_contiguous():
         raise ValueError("bytes must be contiguous")
@@ -91,7 +86,7 @@ def _launch_args(bytes_u8: torch.Tensor, state: DfpwmState):
     st_in = torch.stack(state.leaves())  # int32[5, L]
     out = torch.empty((lanes, nbytes * 8), dtype=torch.int8, device=bytes_u8.device)
     st_out = torch.empty_like(st_in)
-    stream = torch.cuda.current_stream(bytes_u8.device).cuda_stream
+    stream = stream_of(bytes_u8)
     return st_in, out, st_out, stream
 
 
@@ -125,10 +120,10 @@ def dfpwm_decode_dsp_kernel(bytes_u8: torch.Tensor, state: DfpwmState, alpha: fl
     (aukit_tpu/kernels/dfpwm_pallas.py:237)."""
     _check_inputs(bytes_u8, state)
     if mask is not None:
-        _check_lane_vector("mask", mask, torch.bool, bytes_u8)
+        check_lane_vector("mask", mask, torch.bool, bytes_u8)
     if gain is not None:
         for name, g in zip(("gain0", "gain slope"), gain):
-            _check_lane_vector(name, g, torch.float32, bytes_u8)
+            check_lane_vector(name, g, torch.float32, bytes_u8)
     if bytes_u8.device.type == "cpu":
         return dfpwm_decode_dsp_ref(bytes_u8, state, alpha, mask, gain)
     lanes, nbytes = bytes_u8.shape
@@ -152,10 +147,3 @@ dfpwm_decode_dsp_kernel.launches = 0
 KERNELS = (dfpwm_decode_kernel, dfpwm_decode_dsp_kernel)
 PLAIN = (dfpwm_decode_ref, dfpwm_decode_dsp_ref)
 
-
-def reset_counts() -> None:
-    """Zero every kernel's launch count and every plain version's call count."""
-    for fn in KERNELS:
-        fn.launches = 0
-    for fn in PLAIN:
-        fn.calls = 0

@@ -3,9 +3,11 @@
 
 ``dsp_chain`` turns a float block at the lane's rate into 48 kHz int8:
 resample (static gather tables) -> FIR smoothing -> optional volume ramp ->
-int8 scale/clamp, as torch ops on whatever device the block lives on. Every
-float step is a separate elementwise op in the JAX package's order, so the
-int8 output agrees with it bit for bit.
+int8 scale/clamp, as torch ops on whatever device the block lives on. The
+float steps run in the order of the JAX package's jitted step, and every
+multiply that XLA fuses into the add it feeds (the FIR, the volume ramp, the
+interpolators) is one ``fma_kernel`` call, so the int8 output agrees with the
+JAX engine's bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from ..codecs.dfpwm import DfpwmState, norm8
 from ..config import CONFIG
 from ..kernels.dfpwm_cuda import dfpwm_decode_kernel
+from ..kernels.fma_cuda import fma_kernel
 from ..ops.resample import block_interp_device, sinc_weights
 
 
@@ -75,11 +78,11 @@ def dsp_chain(samples_f32: torch.Tensor, in_rate: int, out_rate: int = 48000,
     alpha = _f32(fir_alpha(in_rate, out_rate))
     first = torch.zeros_like(s[..., :1]) if fir_state is None else fir_state[..., None]
     prev = torch.cat([first, s[..., :-1]], dim=-1)
-    out = prev + alpha * (s - prev)
+    out = fma_kernel(alpha, s - prev, prev)
     if gain is not None:
         g0, gslope = gain
         t = torch.arange(out.shape[-1], dtype=torch.float32, device=out.device)
-        out = out * (g0[..., None] + gslope[..., None] * t)
+        out = out * fma_kernel(gslope[..., None], t, g0[..., None])
     out = out * torch.where(out < 0, 128.0, 127.0)
     out = out.clamp(-128.0, 127.0).to(torch.int8)
     if fir_state is None:

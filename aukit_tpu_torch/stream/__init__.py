@@ -1,5 +1,9 @@
-"""The batched multi-stream engine."""
+"""The batched multi-stream engine and its container -> lane bridges."""
 
 from .batch import BatchDfpwmDecoder, BatchMetrics, BatchStreamEngine, LaneSpec
+from .batch_codecs import (lane_spec_for_aiff, lane_spec_for_au, lane_spec_for_qoa,
+                           lane_spec_for_wav, mdfpwm_to_lanes)
 
-__all__ = ["BatchStreamEngine", "BatchDfpwmDecoder", "BatchMetrics", "LaneSpec"]
+__all__ = ["BatchStreamEngine", "BatchDfpwmDecoder", "BatchMetrics", "LaneSpec",
+           "lane_spec_for_wav", "lane_spec_for_aiff", "lane_spec_for_au", "lane_spec_for_qoa",
+           "mdfpwm_to_lanes"]

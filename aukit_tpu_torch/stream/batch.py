@@ -1,17 +1,21 @@
 """Batched multi-stream decode engine — counterpart of
-``aukit_tpu.stream.batch`` for DFPWM lanes, mono windows and one device.
+``aukit_tpu.stream.batch`` for mono windows on one device.
 
 Many independent streams are packed into fixed lanes. Lanes with equal
 ``LaneSpec`` share a *group*: one decode dispatch and one resample plan per
-group per step, with each lane's DFPWM state carried on the device between
-steps.
+group per step. Every lane codec of the JAX engine is served (DFPWM, PCM
+8/16/24/32 LE and BE, f32, G.711 µ/A-law, IMA and MS ADPCM, QOA); only
+DFPWM carries codec state on the device between steps, the block codecs
+read theirs from each block header.
 
  - host side: ``_GroupIO`` staging (bulk-fed groups slice column views of the
    fed arrays; per-lane ``feed()`` buffers jittery network ingestion);
- - device side, per group step: identity-rate lanes (48 kHz) run the fused
-   decode + normalize + smoothing + gain + int8 + lane-mask CUDA kernel
-   (``dfpwm_decode_dsp_kernel``); other rates run the decode kernel, then
-   ``dsp_chain`` (resample, FIR, gain, int8) as torch ops;
+ - device side, per group step: identity-rate DFPWM lanes (48 kHz) run the
+   fused decode + normalize + smoothing + gain + int8 + lane-mask CUDA
+   kernel (``dfpwm_decode_dsp_kernel``); every other group decodes
+   (``batch_codecs.build_decoder``: the DFPWM, IMA, MS ADPCM and QOA CUDA
+   kernels, torch ops for the elementwise codecs), then runs ``dsp_chain``
+   (resample, FIR, gain, int8) as torch ops;
  - exhausted or unfed lanes are masked, not removed: their output is zeros
    and their state does not advance;
  - heterogeneous engines assemble uniform one-second windows from per-group
@@ -424,7 +428,8 @@ class _Group:
 
 
 class BatchStreamEngine:
-    """Fixed-lane batched DFPWM -> 48 kHz int8 decoder on one device.
+    """Fixed-lane batched decoder of any ``LaneSpec`` codec to 48 kHz int8,
+    on one device.
 
     Parameters
     ----------
@@ -653,7 +658,8 @@ class BatchStreamEngine:
         g.samples_in[slot] = ckpt["byte_offset"] * g.in_samples // g.in_bytes
         g.io.replace_lane(slot, ckpt["pending"], ckpt["eof"])
         # the group owns its state and fir tensors (every step makes new
-        # ones), so one lane's row is written in place
+        # ones), so one lane's row is written in place; a stateless codec's
+        # state has no leaves
         cs = ckpt.get("codec_state")  # None/absent -> zero the lane's state
         for i, leaf in enumerate(g.state.leaves()):
             leaf[slot] = int(cs[i]) if cs is not None else 0
@@ -686,8 +692,10 @@ class BatchStreamEngine:
 
 
 class BatchDfpwmDecoder(BatchStreamEngine):
-    """A homogeneous engine over one byte codec: ``lanes`` streams at
-    ``sample_rate``, ``chunk_bytes`` input bytes per lane per step."""
+    """A homogeneous engine over one byte codec: ``lanes`` mono streams of
+    ``codec`` ("dfpwm", the default, or any other LaneSpec codec that needs
+    no block_align) at ``sample_rate``, ``chunk_bytes`` input bytes per lane
+    per step."""
 
     def __init__(self, lanes: int, sample_rate: int = 48000, chunk_bytes: int = 6000,
                  codec: str = "dfpwm", device="cuda"):

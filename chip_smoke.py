@@ -5,12 +5,14 @@ Run from the repository root on a machine with the card and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from aukit_tpu_torch/csrc, checks them against
-golden vectors and against their plain PyTorch versions on the card, checks
-the CUDA engine against the CPU engine, drives the main path (the batched
-DFPWM -> 48 kHz int8 engine) at full width, and times the kernels. Each phase
-prints one line; any failure raises, so the exit code is non-zero and the
-closing result line is not printed. It exits non-zero at once without a CUDA
-device. Imports only torch, numpy and aukit_tpu_torch.
+golden vectors and against their plain PyTorch versions on the card (also at
+the main paths' own shapes and bytes), checks the CUDA engine against the CPU
+engine, drives the two main paths at full width (the batched DFPWM -> 48 kHz
+int8 engine, and a 32768-lane block-codec fleet of IMA, MS ADPCM, QOA, PCM16
+and µ-law lanes), and times the kernels. Each phase prints one line; any
+failure raises, so the exit code is non-zero and the closing result line is
+not printed. It exits non-zero at once without a CUDA device. Imports only
+torch, numpy and aukit_tpu_torch.
 """
 
 from __future__ import annotations
@@ -23,11 +25,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, LaneSpec
+from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, LaneSpec, kernels
+from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState, dfpwm_encode
 from aukit_tpu_torch.kernels import _build
+from aukit_tpu_torch.kernels import adpcm_cuda as ka
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc
+from aukit_tpu_torch.kernels import fma_cuda as kf
+from aukit_tpu_torch.kernels import qoa_cuda as kq
 from aukit_tpu_torch.parallel.pipeline import fir_alpha
+from aukit_tpu_torch.stream import batch_codecs as bc
 
 ROOT = Path(__file__).resolve().parent
 FULL_LANES = 32768  # bench.py's headline fleet: 8 groups of 4096 streams
@@ -77,12 +84,20 @@ def random_state(rng, lanes: int) -> DfpwmState:
 
 
 def same(a, b) -> tuple[bool, int]:
-    """(equal, max |a - b|) of two int tensors or two DfpwmStates."""
-    pairs = zip(a.leaves(), b.leaves()) if isinstance(a, DfpwmState) else [(a, b)]
-    # int8 differences fit int16: a full-width window stays a few GB wide
-    wide = {torch.int8: torch.int16}
-    err = max(int((x.to(wide.get(x.dtype, torch.int64))
-                   - y.to(wide.get(y.dtype, torch.int64))).abs().max()) if x.numel() else 0
+    """(equal, max |a - b|) of two int tensors, two DfpwmStates or two
+    kernel-state tuples."""
+    if isinstance(a, DfpwmState):
+        pairs = zip(a.leaves(), b.leaves())
+    elif isinstance(a, tuple):
+        pairs = zip(a, b, strict=True)
+    else:
+        pairs = [(a, b)]
+    # differences of narrow ints fit the next width: a full-width tensor
+    # stays a few GB wide
+    wide = {torch.int8: torch.int16, torch.int16: torch.int32}
+    err = max(0 if torch.equal(x, y) else
+              int((x.to(wide.get(x.dtype, torch.int64))
+                   - y.to(wide.get(y.dtype, torch.int64))).abs().max())
               for x, y in pairs)
     return err == 0, err
 
@@ -287,7 +302,7 @@ def phase_main_path(tones: torch.Tensor, levels: torch.Tensor) -> dict:
     Every launch count is zeroed just before and read just after."""
     seconds = 4
     bulk = np.tile(tones.cpu().numpy(), (1, seconds))  # u8[32768, 24000]
-    kc.reset_counts()
+    kernels.reset_counts()
     t0 = sync_time()
     eng = BatchDfpwmDecoder(FULL_LANES, 48000, chunk_bytes=6000, device="cuda")
     eng.feed_array(bulk)
@@ -319,11 +334,11 @@ def phase_main_path(tones: torch.Tensor, levels: torch.Tensor) -> dict:
         windows += 1
     dt_mixed = sync_time() - t0
     launches = {"dfpwm_decode": kc.dfpwm_decode_kernel.launches,
-                "dfpwm_decode_dsp": kc.dfpwm_decode_dsp_kernel.launches}
-    check(launches["dfpwm_decode"] > 0 and launches["dfpwm_decode_dsp"] > fused,
-          "both kernels launched by the mixed fleet")
-    check(kc.dfpwm_decode_ref.calls == 0 and kc.dfpwm_decode_dsp_ref.calls == 0,
-          "no plain version on the CUDA path")
+                "dfpwm_decode_dsp": kc.dfpwm_decode_dsp_kernel.launches,
+                "fma": kf.fma_kernel.launches}
+    check(launches["dfpwm_decode"] > 0 and launches["dfpwm_decode_dsp"] > fused
+          and launches["fma"] > 0, "the kernels launched by the mixed fleet")
+    check(all(fn.calls == 0 for fn in kernels.PLAIN), "no plain version on the CUDA path")
     say("main_path", case="mixed_48k_32k", lanes=FULL_LANES, windows=windows,
         seconds=round(dt_mixed, 4), samples_decoded=mixed.metrics.samples_decoded,
         realtime_factor=round(mixed.metrics.samples_decoded / 48000 / dt_mixed, 1),
@@ -459,28 +474,460 @@ def phase_times() -> dict:
     return times
 
 
+# -- the block-codec lanes ---------------------------------------------------------------
+
+# the block fleet: bench.py:457-460's mixed-fleet specs at full width, with an
+# MS ADPCM and a QOA group beside its IMA group
+BLOCK_FLEET = (LaneSpec("ima", 22050, 1, block_align=256),
+               LaneSpec("msadpcm", 22050, 1, block_align=512),
+               LaneSpec("qoa", 44100, 2),
+               LaneSpec("pcm16", 44100),
+               LaneSpec("ulaw", 8000))
+BLOCK_LANES = (8192, 8192, 8192, 4096, 4096)
+CHECK_LANES = 4096  # the block fleet the CUDA and CPU engines both decode
+BENCH_LANES = 16384  # bench.py:306/324/343's block-kernel shapes: 4 x 4096 lanes
+BLOCK_PLAIN = {"ima": ka.ima_decode_ref, "msadpcm": ka.msadpcm_decode_ref,
+               "qoa": kq.qoa_lms_ref}
+
+
+def ima_resample_width() -> int:
+    """Output samples of one IMA group step: the width of its resample."""
+    spec = BLOCK_FLEET[0]
+    return bc.geometry(spec)[1] * 48000 // spec.sample_rate
+
+
+def cuda_i32(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.int32), device="cuda")
+
+
+def block_kernel_cases(rng, lanes: int) -> dict:
+    """Random block-kernel arguments at ``lanes`` lanes, ragged-free, with a
+    non-zero incoming state: IMA step indices over 0..88, MS ADPCM negative
+    header deltas and every coefficient pair, QOA half the lanes in the
+    int32-overflowing state of tests/test_pallas_kernels.py:143-146.
+    -> {kernel name: (T, make_input, state, extra args)}."""
+    pidx = rng.integers(0, 7, lanes)
+    qoa_hist = rng.integers(-32768, 32768, (lanes, 4))
+    qoa_wts = rng.integers(-30000, 30000, (lanes, 4))
+    qoa_hist[::2], qoa_wts[::2] = 32767, 2 * 10**8
+    return {
+        "ima": (504, lambda: torch.tensor(rng.integers(0, 16, (lanes, 504), dtype=np.uint8),
+                                          device="cuda"),
+                (cuda_i32(rng.integers(-32768, 32768, lanes)), cuda_i32(rng.integers(0, 89, lanes))),
+                ()),
+        "msadpcm": (1010, lambda: torch.tensor(rng.integers(-8, 8, (lanes, 1010), dtype=np.int8),
+                                               device="cuda"),
+                    (cuda_i32(rng.integers(-2000, 2000, lanes)),
+                     cuda_i32(rng.integers(-2000, 2000, lanes)),
+                     cuda_i32(rng.integers(-400, 400, lanes))),
+                    (cuda_i32(MSADPCM_DEFAULT_COEFFS[0][pidx]),
+                     cuda_i32(MSADPCM_DEFAULT_COEFFS[1][pidx]))),
+        "qoa": (5120, lambda: torch.tensor(
+                    rng.integers(-14336, 14337, (lanes, 5120)).astype(np.int16), device="cuda"),
+                (cuda_i32(qoa_hist), cuda_i32(qoa_wts)), ()),
+    }
+
+
+def phase_block_kernel_vs_plain() -> dict:
+    """Kernels (d), (e), (f) against their plain versions on the same CUDA
+    tensors: 32768 lanes, two chained calls from a non-zero state, outputs
+    and final states compared exactly. Returns max |error| by kernel."""
+    rng = np.random.default_rng(8)
+    errs = {}
+    for name, (T, make, state, extra) in block_kernel_cases(rng, FULL_LANES).items():
+        st, ref_st = state, state
+        errs[name] = 0
+        for call in range(2):
+            x = make()
+            out, st = bc.BLOCK_KERNELS[name][1](x, *st, *extra)
+            ref, ref_st = BLOCK_PLAIN[name](x, *ref_st, *extra)
+            (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(st, ref_st)
+            errs[name] = max(errs[name], e_o, e_s)
+            say("kernel_vs_plain", kernel=name, lanes=FULL_LANES, samples=T, call=call,
+                out_equal=ok_o, state_equal=ok_s)
+            check(ok_o and ok_s, f"{name} kernel == plain")
+    return errs
+
+
+def ms_encode_blocks(x: torch.Tensor, pidx: torch.Tensor) -> torch.Tensor:
+    """A real MS ADPCM encoder (tests/fixtures.py ms_encode), vectorised over
+    blocks on the card: int32[R, spb] signal blocks, int[R] predictor
+    indices -> uint8[R, 7 + (spb - 2) // 2] mono blocks, so each delta
+    follows its signal."""
+    c1 = cuda_i32(MSADPCM_DEFAULT_COEFFS[0])[pidx]
+    c2 = cuda_i32(MSADPCM_DEFAULT_COEFFS[1])[pidx]
+    adapt = cuda_i32(MSADPCM_ADAPTION)
+    s2, s1 = x[:, 0], x[:, 1]
+    d0 = ((x[:, 1:] - x[:, :-1]).abs().double().mean(1) / 4).to(torch.int32).clamp_min(16)
+    d = d0
+    nibs = []
+    for i in range(2, x.shape[1]):
+        lin = (s1 * c1 + s2 * c2) >> 8
+        nib = torch.round((x[:, i] - lin).double() / d.double()).clamp(-8, 7).to(torch.int32)
+        pred = (lin + nib * d).clamp(-32768, 32767)
+        d = ((adapt[nib + 8] * d) >> 8).clamp(16, 1 << 20)
+        s2, s1 = s1, pred
+        nibs.append(nib & 0x0F)
+    n = torch.stack(nibs, dim=1)
+    body = (n[:, 0::2] << 4) | n[:, 1::2]
+
+    def le16(v):
+        return torch.stack([v & 0xFF, (v >> 8) & 0xFF], dim=1)
+
+    hdr = torch.cat([pidx.to(torch.int32)[:, None], le16(d0), le16(x[:, 1]), le16(x[:, 0])], 1)
+    return torch.cat([hdr, body], dim=1).to(torch.uint8)
+
+
+def tone_signals(rng, lanes: int, n: int, rate: int):
+    """int32[lanes, n] tones (110-1000 Hz, 30-90% of full scale) on the card,
+    and their (freq, amp) per lane."""
+    freq = torch.tensor(rng.uniform(110, 1000, lanes), device="cuda")[:, None]
+    amp = torch.tensor(rng.uniform(0.3, 0.9, lanes) * 32767, device="cuda")[:, None]
+    t = torch.arange(n, device="cuda", dtype=torch.float64) / rate
+    return torch.trunc(amp * torch.sin(2 * np.pi * freq * t)).to(torch.int32), freq, amp
+
+
+def block_fleet_bytes(rng, spec: LaneSpec, lanes: int, seconds: int):
+    """uint8[lanes, seconds * in_bytes] of one group, built in the manner of
+    tests/fixtures.py: IMA blocks with valid random headers and random
+    nibbles (ima_wav_blocks), MS ADPCM tones through the real encoder
+    (ms_encode), QOA frames with valid headers, random LMS states and random
+    slices (qoa_stream), PCM16 tones, random µ-law bytes. -> (bytes, tone
+    (freq, amp) or None)."""
+    in_bytes, in_samples = bc.geometry(spec)
+    n = seconds * in_bytes
+    if spec.codec == "ima":
+        blk = rng.integers(0, 256, (lanes, n // 256, 256), dtype=np.uint8)
+        pred = rng.integers(-32768, 32768, blk.shape[:2])
+        blk[..., 0], blk[..., 1] = pred & 0xFF, (pred >> 8) & 0xFF
+        blk[..., 2], blk[..., 3] = rng.integers(0, 89, blk.shape[:2]), 0
+        return blk.reshape(lanes, n), None
+    if spec.codec == "msadpcm":
+        spb = in_samples // (in_bytes // 512)
+        x, freq, amp = tone_signals(rng, lanes, seconds * in_samples, spec.sample_rate)
+        nblk = n // 512
+        pidx = torch.tensor(rng.integers(0, 7, lanes * nblk), device="cuda")
+        enc = ms_encode_blocks(x.reshape(lanes * nblk, spb), pidx)
+        return enc.reshape(lanes, n).cpu().numpy(), (freq, amp)
+    if spec.codec == "qoa":
+        ch, rate = spec.channels, spec.sample_rate
+        fb = 8 + ch * (16 + 256 * 8)
+        blk = rng.integers(0, 256, (lanes, n // fb, fb), dtype=np.uint8)
+        blk[..., :8] = [ch, rate >> 16, (rate >> 8) & 0xFF, rate & 0xFF, 5120 >> 8, 5120 & 0xFF,
+                        fb >> 8, fb & 0xFF]
+        for c in range(ch):
+            state = np.concatenate([rng.integers(-200, 200, blk.shape[:2] + (4,)),
+                                    rng.integers(-300, 300, blk.shape[:2] + (4,))], axis=-1)
+            be = state.astype(">i2").view(np.uint8).reshape(blk.shape[:2] + (16,))
+            blk[..., 8 + 16 * c: 24 + 16 * c] = be
+        return blk.reshape(lanes, n), None
+    if spec.codec == "pcm16":
+        x, freq, amp = tone_signals(rng, lanes, n // 2, spec.sample_rate)
+        return x.to(torch.int16).cpu().numpy().view(np.uint8), (freq, amp)
+    return rng.integers(0, 256, (lanes, n), dtype=np.uint8), None  # ulaw
+
+
+def window_tone_correlation(window: torch.Tensor, freq, amp, start: int) -> torch.Tensor:
+    """Per-lane correlation of 48 kHz int8 windows with the source tones,
+    the window starting at output sample ``start``; skips 0.1 s."""
+    t = (start + 4800 + torch.arange(window.shape[1] - 4800, device="cuda",
+                                     dtype=torch.float64)) / 48000
+    y = amp * torch.sin(2 * np.pi * freq * t)
+    x = window[:, 4800:].to(torch.float64)
+    x, y = x - x.mean(1, keepdim=True), y - y.mean(1, keepdim=True)
+    return (x * y).sum(1) / (x.norm(dim=1) * y.norm(dim=1))
+
+
+def block_fleet_data():
+    """The block fleet's specs and per-group bytes (3 s per lane)."""
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    groups = [block_fleet_bytes(rng, spec, lanes, 3) for spec, lanes in zip(BLOCK_FLEET, BLOCK_LANES)]
+    specs = [spec for spec, lanes in zip(BLOCK_FLEET, BLOCK_LANES) for _ in range(lanes)]
+    say("block_fleet_bytes", lanes=len(specs), seconds_per_lane=3,
+        bytes=sum(g.nbytes for g, _ in groups), build_seconds=round(time.perf_counter() - t0, 3))
+    return specs, groups
+
+
+def fed_block_engine(specs, groups) -> tuple[BatchStreamEngine, float]:
+    """A CUDA engine over the block fleet with every lane's bytes fed (EOF
+    after each) -> (engine, host seconds of the feeding)."""
+    eng = BatchStreamEngine(specs, device="cuda")
+    t0 = time.perf_counter()
+    lane = 0
+    for data, _ in groups:
+        for row in data:
+            eng.feed(lane, row.tobytes())
+            eng.feed(lane, None)
+            lane += 1
+    return eng, time.perf_counter() - t0
+
+
+def phase_block_fleet(specs, groups) -> tuple[dict, dict]:
+    """The block-codec main path at full width, through the engine's entry
+    points: one heterogeneous 32768-lane BatchStreamEngine, 3 s per lane,
+    host-fed per lane through feed() (feed_array takes one byte matrix for
+    every group, so lanes whose codecs differ in byte rate cannot be given
+    equal durations through it), one-second windows. Every launch count is
+    zeroed just before the run and read just after. Then each block kernel
+    against its plain version at the fleet's own shapes, on the fleet's own
+    first-step bytes, every lane and final state compared; the first window
+    of 8 lanes per group against the CPU engine; MS ADPCM and PCM16 lanes
+    against their source tones. Returns (launches, max |error|) by kernel."""
+    rng = np.random.default_rng(12)
+    seconds = 3
+    kernels.reset_counts()
+    eng, feed_s = fed_block_engine(specs, groups)
+    t0 = sync_time()
+    windows = []
+    while (r := eng.step()) is not None:
+        check(tuple(r[0].shape) == (len(specs), 48000) and r[0].dtype == torch.int8,
+              "block fleet window shape/dtype")
+        check(len(windows) >= seconds or bool(r[1].all()), "every lane live in its 3 s")
+        if len(windows) < 2:
+            windows.append(r[0])
+        else:
+            windows.append(None)
+    dt = sync_time() - t0
+    launches = {"ima_decode": ka.ima_decode_kernel.launches,
+                "msadpcm_decode": ka.msadpcm_decode_kernel.launches,
+                "qoa_lms": kq.qoa_lms_kernel.launches, "fma": kf.fma_kernel.launches}
+    check(len(windows) >= seconds and all(n >= seconds for n in launches.values()),
+          f"each block kernel launched by the fleet ({launches})")
+    check(all(fn.calls == 0 for fn in kernels.PLAIN), "no plain version on the CUDA path")
+    say("main_path", case="block_fleet", lanes=len(specs), windows=len(windows),
+        feed_seconds=round(feed_s, 3), seconds=round(dt, 4),
+        samples_decoded=eng.metrics.samples_decoded,
+        realtime_factor=round(eng.metrics.samples_decoded / 48000 / dt, 1),
+        launches=json.dumps(launches))
+
+    # each kernel against its plain version on the fleet's first-step bytes
+    errs = {}
+    for spec, (data, _) in zip(BLOCK_FLEET, groups):
+        if spec.codec not in bc.BLOCK_KERNELS:
+            continue
+        b = torch.tensor(data[:, : bc.geometry(spec)[0]], device="cuda")
+        make_args, kernel = bc.BLOCK_KERNELS[spec.codec]
+        args = make_args(spec, b)
+        (out, st), ms = timed(lambda: kernel(*args))
+        (ref, ref_st), plain_ms = timed(lambda: BLOCK_PLAIN[spec.codec](*args))
+        (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(st, ref_st)
+        errs[spec.codec] = max(e_o, e_s)
+        say("kernel_vs_plain_main_shape", kernel=spec.codec, lanes=out.shape[0],
+            samples=out.shape[1], out_equal=ok_o, state_equal=ok_s, ms=round(ms, 4),
+            plain_ms=round(plain_ms, 2))
+        check(ok_o and ok_s, f"{spec.codec} kernel == plain at the fleet's shape")
+        del b, args, out, ref, st, ref_st
+        torch.cuda.empty_cache()
+    # the FMA at the shape of the IMA group's resample: [8192, 48272] with a
+    # per-column fraction
+    n_out = ima_resample_width()
+    x = torch.tensor(rng.uniform(-1, 1, (BLOCK_LANES[0], n_out)).astype(np.float32), device="cuda")
+    frac = torch.tensor(rng.uniform(0, 1, n_out).astype(np.float32), device="cuda")
+    z = x.flip(1).contiguous()
+    out, ms = timed(lambda: kf.fma_kernel(x, frac, z))
+    ref, plain_ms = timed(lambda: kf.fma_ref(x, frac, z))
+    ok = torch.equal(out, ref)
+    errs["fma"] = 0 if ok else float((out - ref).abs().max())
+    say("kernel_vs_plain_main_shape", kernel="fma", lanes=x.shape[0], samples=n_out,
+        out_equal=ok, ms=round(ms, 4), plain_ms=round(plain_ms, 2))
+    check(ok, "fma kernel == plain at the fleet's resample shape")
+    del x, frac, z, out, ref
+    torch.cuda.empty_cache()
+
+    # the first window of 8 lanes per group == the CPU engine on those lanes
+    starts = np.concatenate([[0], np.cumsum(BLOCK_LANES)[:-1]])
+    sub = np.concatenate([np.arange(s0, s0 + 8) for s0 in starts])
+    cpu = BatchStreamEngine([specs[i] for i in sub], device="cpu")
+    for i, lane in enumerate(sub):
+        g = int(np.searchsorted(starts, lane, side="right")) - 1
+        cpu.feed(i, groups[g][0][lane - starts[g]].tobytes())
+        cpu.feed(i, None)
+    check(torch.equal(windows[0][torch.tensor(sub, device="cuda")].cpu(), cpu.step()[0]),
+          "block fleet's first window == CPU engine on 8 lanes per group")
+    corr = {}
+    for spec, s0, lanes, (_, tone) in zip(BLOCK_FLEET, starts, BLOCK_LANES, groups):
+        if tone is not None:
+            c = window_tone_correlation(windows[1][s0: s0 + lanes], *tone, start=48000)
+            corr[spec.codec] = (round(float(c.min()), 4), round(float(c.median()), 4))
+            check(bool(torch.isfinite(c).all()) and float(c.min()) > 0.8,
+                  f"{spec.codec} lanes follow their source tones")
+    say("block_fleet_output", lanes_equal_cpu=len(sub), tone_corr_min_median=json.dumps(corr))
+    return launches, errs
+
+
+def phase_block_step_breakdown(specs, groups) -> None:
+    """Where the time of one block-fleet window goes: a fresh engine over
+    the same bytes steps once (allocations), then one window under
+    torch.profiler: its wall time, the host time of the groups' staging
+    (``_GroupIO.stage``, timed by wrapping it), the device time of each
+    block kernel, of the FMA kernel, of the host->device copies and of the
+    other torch ops, and the device's busy share of the wall time."""
+    eng, _ = fed_block_engine(specs, groups)
+    staged = [0.0]
+    for g in eng.groups:
+        def stage(orig=g.io.stage):
+            t0 = time.perf_counter()
+            r = orig()
+            staged[0] += time.perf_counter() - t0
+            return r
+        g.io.stage = stage
+    t0 = sync_time()
+    eng.step()
+    first_ms = (sync_time() - t0) * 1e3
+    staged[0] = 0.0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = sync_time()
+        eng.step()
+        wall = (sync_time() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {"ima": "ima_decode_kernel", "msadpcm": "msadpcm_decode_kernel",
+             "qoa": "qoa_lms_kernel", "fma": "fma_kernel", "htod": "Memcpy HtoD"}
+    spans = {k: [(e.time_range.start, e.time_range.end) for e in dev if v in e.name]
+             for k, v in names.items()}
+    spans["other"] = [(e.time_range.start, e.time_range.end) for e in dev
+                      if not any(v in e.name for v in names.values())]
+    everything = [iv for ivs in spans.values() for iv in ivs]
+    kernels_only = [iv for k, ivs in spans.items() if k != "htod" for iv in ivs]
+    say("step_breakdown", case="block_fleet", lanes=len(specs), first_step_ms=round(first_ms, 3),
+        profiled_window_ms=round(wall, 3), staging_host_ms=round(staged[0] * 1e3, 3),
+        **{f"{k}_ms": round(busy_ms(v), 3) for k, v in spans.items()},
+        device_events=len(dev), busy_kernels=round(busy_ms(kernels_only) / wall, 4),
+        busy_with_copies=round(busy_ms(everything) / wall, 4))
+    del eng
+    torch.cuda.empty_cache()
+
+
+def block_feeds(rng, lanes: int):
+    """A 4096-lane block fleet's per-lane feeds with ragged EOF tails: 1 to
+    2.6 s per lane, cut at any byte; every QOA lane ends in a short frame
+    (its header's sample count below 5120, the frame cut after it)."""
+    specs, feeds = [], []
+    share = (lanes // 4, lanes // 4, lanes // 4, lanes // 8, lanes // 8)
+    for spec, n in zip(BLOCK_FLEET, share):
+        data, _ = block_fleet_bytes(rng, spec, n, 3)
+        in_bytes = bc.geometry(spec)[0]
+        for row in data:
+            if spec.codec == "qoa":
+                fb = 8 + spec.channels * (16 + 256 * 8)
+                frames = int(rng.integers(9, 23))
+                last = int(rng.integers(100, 5120))
+                frame = row[(frames - 1) * fb: frames * fb]
+                frame[4:6] = [last >> 8, last & 0xFF]
+                cut = (frames - 1) * fb + 8 + spec.channels * (16 + -(-last // 20) * 8)
+            else:
+                cut = int(rng.integers(in_bytes, int(2.6 * in_bytes)))
+            specs.append(spec)
+            feeds.append(row[:cut].tobytes())
+    return specs, feeds
+
+
+def phase_block_engines() -> None:
+    """The CUDA engine against the CPU engine on a 4096-lane block fleet
+    with ragged EOF tails, QOA short final frames and volume ramps: 64
+    evenly spaced lanes' windows, masks, positions and checkpoints."""
+    rng = np.random.default_rng(10)
+    n = CHECK_LANES
+    specs, feeds = block_feeds(rng, n)
+    subset = np.arange(0, n, n // 64)
+    vols = [(0, 0.5, False), (n // 64, 0.3, True), (n // 4 + n // 64, 1.6, True),
+            (n // 2, 0.8, False)]
+    compare_engines("block_fleet", BatchStreamEngine(specs, device="cuda"),
+                    BatchStreamEngine([specs[i] for i in subset], device="cpu"),
+                    feeds, subset, vols)
+
+
+def phase_block_times() -> dict:
+    """Kernels (d), (e), (f) against their plain versions at bench.py's TPU
+    shapes (IMA and MS ADPCM 16384 lanes x 8192 samples, QOA 16384 x 5120),
+    and the FMA at the fleet's resample shape, by CUDA events, in turns
+    kernel, plain, kernel, plain."""
+    rng = np.random.default_rng(11)
+    lanes = BENCH_LANES
+    cases = block_kernel_cases(rng, lanes)
+    times = {}
+    for name, T in (("ima", 8192), ("msadpcm", 8192), ("qoa", 5120)):
+        _, _, state, extra = cases[name]
+        if name == "ima":
+            x = torch.randint(0, 16, (lanes, T), dtype=torch.uint8, device="cuda")
+        elif name == "msadpcm":
+            x = torch.randint(-8, 8, (lanes, T), dtype=torch.int8, device="cuda")
+        else:
+            x = torch.randint(-14336, 14337, (lanes, T), dtype=torch.int16, device="cuda")
+
+        def kernel(x=x, state=state, extra=extra, name=name):
+            bc.BLOCK_KERNELS[name][1](x, *state, *extra)
+
+        def plain(x=x, state=state, extra=extra, name=name):
+            BLOCK_PLAIN[name](x, *state, *extra)
+
+        kernel()
+        k1, p1 = event_ms(kernel, 10), event_ms(plain, 1)
+        k2, p2 = event_ms(kernel, 10), event_ms(plain, 1)
+        times[name] = (min(k1, k2), min(p1, p2))
+        say("time", kernel=name, lanes=lanes, samples=T, ms=round(times[name][0], 4),
+            plain_ms=round(times[name][1], 2),
+            gsamples_per_s=round(lanes * T / times[name][0] / 1e6, 2))
+        del x
+    rows, cols = BLOCK_LANES[0], ima_resample_width()
+    x = torch.rand((rows, cols), device="cuda") * 2 - 1
+    frac = torch.rand(cols, device="cuda")
+    k1, p1 = event_ms(lambda: kf.fma_kernel(x, frac, x), 10), event_ms(lambda: kf.fma_ref(x, frac, x), 1)
+    k2, p2 = event_ms(lambda: kf.fma_kernel(x, frac, x), 10), event_ms(lambda: kf.fma_ref(x, frac, x), 1)
+    times["fma"] = (min(k1, k2), min(p1, p2))
+    # bytes moved: two [rows, cols] float32 reads and one write (frac is a row)
+    say("time", kernel="fma", lanes=rows, samples=cols, ms=round(times["fma"][0], 4),
+        plain_ms=round(times["fma"][1], 2),
+        gbytes_per_s=round(rows * cols * 12 / times["fma"][0] / 1e6, 1))
+    return times
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     phase_golden()
     errs = phase_kernel_vs_plain()
-    tones, levels = encoded_tones(FULL_LANES, 1.0, seed=3)
-    say("encode", lanes=FULL_LANES, bytes=tones.shape[1])
-    for name, err in phase_kernel_vs_plain_main_shapes(tones).items():
+    errs.update(phase_block_kernel_vs_plain())
+    tones_u8, levels = encoded_tones(FULL_LANES, 1.0, seed=3)
+    say("encode", lanes=FULL_LANES, bytes=tones_u8.shape[1])
+    for name, err in phase_kernel_vs_plain_main_shapes(tones_u8).items():
         errs[name] = max(errs[name], err)
-    phase_engines(tones)
-    launches = phase_main_path(tones, levels)
+    phase_engines(tones_u8)
+    launches = phase_main_path(tones_u8, levels)
     del levels
     torch.cuda.empty_cache()
-    phase_step_breakdown(tones)
+    phase_step_breakdown(tones_u8)
+    del tones_u8
+    torch.cuda.empty_cache()
+    specs, groups = block_fleet_data()
+    block_launches, block_errs = phase_block_fleet(specs, groups)
+    for name, err in block_errs.items():
+        errs[name] = max(errs.get(name, 0), err)
+    torch.cuda.empty_cache()
+    phase_block_step_breakdown(specs, groups)
+    del specs, groups
+    phase_block_engines()
     times = phase_times()
-    replaces = {"dfpwm_decode": "aukit_tpu/kernels/dfpwm_pallas.py:113",
-                "dfpwm_decode_dsp": "aukit_tpu/kernels/dfpwm_pallas.py:237"}
+    times.update(phase_block_times())
+    rows = (("dfpwm_decode", "dfpwm_decode", "dfpwm.cu", "aukit_tpu/kernels/dfpwm_pallas.py:113",
+             launches),
+            ("dfpwm_decode_dsp", "dfpwm_decode_dsp", "dfpwm.cu",
+             "aukit_tpu/kernels/dfpwm_pallas.py:237", launches),
+            ("ima_decode", "ima", "adpcm.cu", "aukit_tpu/kernels/ima_pallas.py:94", block_launches),
+            ("msadpcm_decode", "msadpcm", "adpcm.cu", "aukit_tpu/kernels/msadpcm_pallas.py:104",
+             block_launches),
+            ("qoa_lms", "qoa", "qoa.cu", "aukit_tpu/kernels/qoa_pallas.py:105", block_launches),
+            # no Pallas kernel: XLA's fused multiply-add in the jitted dsp_chain
+            ("fma", "fma", "fma.cu", "aukit_tpu/parallel/pipeline.py:97", block_launches))
+    say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": "aukit_tpu_torch/csrc/dfpwm.cu",
-         "replaces": replaces[name], "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]} for name in replaces]}), flush=True)
+        {"name": name, "route": "cuda", "source": f"aukit_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": counts[name], "max_abs_err": errs[key],
+         "ms": times[key][0], "plain_ms": times[key][1]}
+        for name, key, src, replaces, counts in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

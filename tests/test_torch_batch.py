@@ -215,10 +215,9 @@ def test_unported_pieces_raise():
     ckpt["dsp"] = {**ckpt["dsp"], "kind": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.restore(0, ckpt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch.BatchStreamEngine([batch.LaneSpec("pcm16", 44100)], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch.BatchStreamEngine([batch.LaneSpec("dfpwm")], device="cpu", mono=False)
+    for spec in (batch.LaneSpec("dfpwm"), batch.LaneSpec("ima", 22050, 2, block_align=256)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            batch.BatchStreamEngine([spec], device="cpu", mono=False)
     with pytest.raises(ValueError):
         batch.LaneSpec("dfpwm", channels=2)
 
@@ -237,13 +236,27 @@ sys.modules["jax"] = None
 sys.modules["aukit_tpu"] = None
 import numpy as np
 import aukit_tpu_torch as t
+rng = np.random.default_rng(0)
 eng = t.BatchDfpwmDecoder(4, 48000, chunk_bytes=64, device="cpu")
-eng.feed_array(np.random.default_rng(0).integers(0, 256, (4, 150), dtype=np.uint8))
+eng.feed_array(rng.integers(0, 256, (4, 150), dtype=np.uint8))
 n = 0
 while (r := eng.step()) is not None:
     assert r[0].shape == (4, 512) and r[1].all()
     n += 1
 assert n == 3 and eng.done
+# a heterogeneous fleet with a block-codec (IMA, QOA) group of each kernel
+specs = [t.LaneSpec("ima", 2000, 1, block_align=36), t.LaneSpec("qoa", 5120, 1),
+         t.LaneSpec("pcm16", 1000)]
+eng = t.BatchStreamEngine(specs, device="cpu")
+for lane, nbytes in enumerate((36 * 32, 8 + 16 + 256 * 8, 2000)):
+    eng.feed(lane, rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes())
+    eng.feed(lane, None)
+windows = []
+while (r := eng.step()) is not None:
+    assert r[0].shape == (3, 48000)
+    windows.append(r[1])
+assert len(windows) == 2 and windows[0].all() and eng.done
+assert eng.checkpoint(0)["codec_state"] == []
 assert not any(m.startswith(("jax", "aukit_tpu.")) for m in sys.modules if sys.modules[m])
 print("ok")
 """

@@ -15,8 +15,10 @@ import torch
 
 from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, LaneSpec
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
-from aukit_tpu_torch.kernels.dfpwm_cuda import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
-                                                dfpwm_decode_kernel, dfpwm_decode_ref)
+from aukit_tpu_torch.kernels import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
+                                     dfpwm_decode_kernel, dfpwm_decode_ref, fma_kernel, fma_ref,
+                                     ima_decode_kernel, ima_decode_ref, msadpcm_decode_kernel,
+                                     msadpcm_decode_ref, qoa_lms_kernel, qoa_lms_ref)
 
 needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
@@ -125,5 +127,98 @@ def test_engine_on_cuda_matches_engine_on_cpu():
     launches = dfpwm_decode_kernel.launches
     cuda = run_engine(lambda: BatchStreamEngine(specs, device="cuda"), feeds, vols)
     assert dfpwm_decode_kernel.launches > launches
+    assert_engines_equal(cuda, run_engine(lambda: BatchStreamEngine(specs, device="cpu"),
+                                          feeds, vols))
+
+
+def cuda_i32(a):
+    return torch.tensor(np.asarray(a, np.int32), device="cuda")
+
+
+def assert_kernel_state_equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes,T", [(1, 1), (65, 70), (300, 504)])
+def test_ima_kernel_matches_plain(lanes, T):
+    """Two chained calls; step indices over 0..88 and out of range (the
+    lookup clamps, the raw index feeds one update)."""
+    rng = np.random.default_rng(lanes)
+    st = ref_st = (cuda_i32(rng.integers(-32768, 32768, lanes)),
+                   cuda_i32(rng.integers(-5, 200, lanes)))
+    for _ in range(2):
+        nibs = torch.tensor(rng.integers(0, 16, (lanes, T), dtype=np.uint8), device="cuda")
+        out, st = ima_decode_kernel(nibs, *st)
+        ref, ref_st = ima_decode_ref(nibs, *ref_st)
+        assert out.dtype == torch.int16 and torch.equal(out, ref)
+        assert_kernel_state_equal(st, ref_st)
+
+
+@pytest.mark.parametrize("lanes,T", [(1, 1), (65, 70), (300, 1010)])
+def test_msadpcm_kernel_matches_plain(lanes, T):
+    """Two chained calls from negative header deltas, every coefficient pair."""
+    rng = np.random.default_rng(lanes)
+    pidx = np.arange(lanes) % 7
+    c1 = cuda_i32(np.array([256, 512, 0, 192, 240, 460, 392])[pidx])
+    c2 = cuda_i32(np.array([0, -256, 0, 64, 0, -208, -232])[pidx])
+    st = ref_st = (cuda_i32(rng.integers(-2000, 2000, lanes)),
+                   cuda_i32(rng.integers(-2000, 2000, lanes)),
+                   cuda_i32(rng.integers(-400, 400, lanes)))
+    for _ in range(2):
+        nibs = torch.tensor(rng.integers(-8, 8, (lanes, T), dtype=np.int8), device="cuda")
+        out, st = msadpcm_decode_kernel(nibs, *st, c1, c2)
+        ref, ref_st = msadpcm_decode_ref(nibs, *ref_st, c1, c2)
+        assert out.dtype == torch.int16 and torch.equal(out, ref)
+        assert_kernel_state_equal(st, ref_st)
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_qoa_kernel_matches_plain(wrap):
+    """Two chained calls; with ``wrap`` the state of
+    tests/test_pallas_kernels.py whose predictor sums overflow int32."""
+    rng = np.random.default_rng(wrap)
+    lanes, T = 130, 300
+    if wrap:
+        hist, wts = cuda_i32(np.full((lanes, 4), 32767)), cuda_i32(np.full((lanes, 4), 2 * 10**8))
+    else:
+        hist = cuda_i32(rng.integers(-32768, 32768, (lanes, 4)))
+        wts = cuda_i32(rng.integers(-30000, 30000, (lanes, 4)))
+    st = ref_st = (hist, wts)
+    for _ in range(2):
+        dq = torch.tensor(rng.integers(-14336, 14337, (lanes, T)).astype(np.int16), device="cuda")
+        out, st = qoa_lms_kernel(dq, *st)
+        ref, ref_st = qoa_lms_ref(dq, *ref_st)
+        assert out.dtype == torch.int16 and torch.equal(out, ref)
+        assert_kernel_state_equal(st, ref_st)
+
+
+def test_fma_kernel_matches_plain():
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.uniform(-1, 1, (70, 3001)).astype(np.float32), device="cuda")
+    y = torch.tensor(rng.uniform(-1, 1, 3001).astype(np.float32), device="cuda")
+    z = torch.tensor(rng.uniform(-1, 1, (70, 1)).astype(np.float32), device="cuda")
+    for args in ((x, y, z), (0.7352, x, x.flip(0)), (y, y, 0.25)):
+        got = fma_kernel(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fma_ref(*args))
+
+
+def test_block_fleet_engine_on_cuda_matches_cpu():
+    """IMA, MS ADPCM, QOA, PCM16 and µ-law lanes in one engine, ragged EOF
+    tails and a volume ramp: windows, masks, positions and checkpoints of
+    the CUDA engine equal the CPU engine's, and each block kernel ran."""
+    rng = np.random.default_rng(5)
+    specs = [LaneSpec("ima", 8000, 1, block_align=256), LaneSpec("msadpcm", 8000, 2, block_align=512),
+             LaneSpec("qoa", 10240, 2), LaneSpec("pcm16", 11025), LaneSpec("ulaw", 8000)] * 2
+    nbytes = [256 * 16, 512 * 16, 2 * (8 + 2 * (16 + 2048)), 2 * 11025, 8000]
+    feeds = [rng.integers(0, 256, nbytes[i % 5] * (1 + i // 5) + 100 * i, dtype=np.uint8).tobytes()
+             for i in range(len(specs))]
+    vols = [(0, 0.5, False), (2, 1.7, True)]
+    launches = [k.launches for k in (ima_decode_kernel, msadpcm_decode_kernel, qoa_lms_kernel)]
+    cuda = run_engine(lambda: BatchStreamEngine(specs, device="cuda"), feeds, vols)
+    assert all(k.launches > n for k, n in zip(
+        (ima_decode_kernel, msadpcm_decode_kernel, qoa_lms_kernel), launches))
     assert_engines_equal(cuda, run_engine(lambda: BatchStreamEngine(specs, device="cpu"),
                                           feeds, vols))
