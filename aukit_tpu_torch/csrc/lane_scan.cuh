@@ -1,16 +1,17 @@
-// Shared skeleton of the block-codec decode kernels (adpcm.cu, qoa.cu):
-// one thread owns one lane and runs its integer recurrence over every sample
-// of the call, with the lane's state in registers.
+// Shared skeleton of the lane-recurrence kernels (adpcm.cu, qoa.cu, flac.cu,
+// iir.cu): one thread owns one lane and runs its recurrence over every
+// sample of the call, with the lane's state in registers.
 //
 // Layout. The wrappers keep the JAX wrappers' lane-major layout: input
-// In[L, T], output int16[L, T], both row-major. A thread reading its own row
+// In[L, T], output Out[L, T], both row-major. A thread reading its own row
 // would make every warp load touch 32 rows, so a block of SCAN_LANES lanes
 // stages SCAN_TILE samples of each of its rows in shared memory first (a
 // warp loads consecutive elements of one row), runs the recurrence out of
-// shared memory, and writes the int16 results back through a second shared
-// tile, again along the rows. Every tile row is padded by 4 bytes, so with
+// shared memory, and writes the results back through a second shared tile,
+// again along the rows. Every tile row is padded by 4 bytes, so with
 // 64-sample tiles a row is an odd number of 4-byte words (17 for bytes, 33
-// for int16) and the per-lane row accesses hit 32 distinct banks. Building
+// for int16, 65 for int32 and float) and the per-lane row accesses hit 32
+// distinct banks. Building
 // the input time-major in the engine instead would have cost an extra
 // transpose pass over device memory per step on the torch side.
 //
@@ -50,17 +51,17 @@ __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
 
 inline int scan_blocks(int lanes) { return (lanes + SCAN_LANES - 1) / SCAN_LANES; }
 
-// Runs lane.step(x) -> int16 over the T samples of this thread's lane. Every
+// Runs lane.step(x) -> Out over the T samples of this thread's lane. Every
 // thread of the block must call it (it synchronises the block); threads past
 // the last lane stage and store but do not step.
-template <typename In, typename Lane>
+template <typename In, typename Out, typename Lane>
 __device__ __forceinline__ void scan_rows(const In* __restrict__ in,
-                                          int16_t* __restrict__ out, int lanes,
+                                          Out* __restrict__ out, int lanes,
                                           long long T, Lane& lane) {
   constexpr int IN_STRIDE = TileStride<In>::value;
-  constexpr int OUT_STRIDE = TileStride<int16_t>::value;
+  constexpr int OUT_STRIDE = TileStride<Out>::value;
   __shared__ In in_tile[SCAN_LANES * IN_STRIDE];
-  __shared__ int16_t out_tile[SCAN_LANES * OUT_STRIDE];
+  __shared__ Out out_tile[SCAN_LANES * OUT_STRIDE];
 
   const int tid = threadIdx.x;
   const int lane0 = blockIdx.x * SCAN_LANES;
@@ -76,7 +77,7 @@ __device__ __forceinline__ void scan_rows(const In* __restrict__ in,
     __syncthreads();
     if (active) {
       const In* row_in = in_tile + tid * IN_STRIDE;
-      int16_t* row_out = out_tile + tid * OUT_STRIDE;
+      Out* row_out = out_tile + tid * OUT_STRIDE;
 #pragma unroll 4
       for (int j = 0; j < nt; ++j) row_out[j] = lane.step(row_in[j]);
     }

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``aukit_tpu_torch/csrc``).
 
 At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
-``aukit_tpu_torch/_build/`` and loaded with ``ctypes``. The library's file
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into one shared library with a plain C interface
+under ``aukit_tpu_torch/_build/``, loaded with ``ctypes``. The library's file
 name carries a hash of the sources (headers included) and the flags, so an
 edited source is rebuilt on its next use. Nothing here runs at import: the
 CPU-only environment that runs the tests has no ``nvcc``.
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "aukit_msadpcm_decode": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_qoa_lms": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_fma": (_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P),
+    "aukit_lpc_restore": (_P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
+    "aukit_iir_zero": (_P, _P, ctypes.c_int, _LL, ctypes.c_float, ctypes.c_float, _P),
 }
 
 
@@ -70,17 +73,36 @@ def load() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(SRC_DIR.glob("*.cu")))]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        jobs = []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for cmd, _obj, proc in jobs:
+            out, err = proc.communicate()
+            log.append(f"{' '.join(cmd)}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+        try:
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _c, obj, _p in jobs)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
+        finally:
+            for _c, obj, _p in jobs:
+                obj.unlink(missing_ok=True)
         for old in BUILD_DIR.glob("libaukit_kernels_*.so"):
             old.unlink()
         os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
         (BUILD_DIR / "build.log").write_text(
-            f"{' '.join(cmd)}\n{time.perf_counter() - t0:.3f} s\n{r.stdout}{r.stderr}")
+            f"{time.perf_counter() - t0:.3f} s\n" + "\n".join(log))
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

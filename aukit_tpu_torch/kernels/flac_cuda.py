@@ -1,0 +1,103 @@
+"""FLAC LPC restore kernel: CUDA C++ for Hopper (``csrc/flac.cu``) and its
+plain PyTorch version — counterpart of ``aukit_tpu.kernels.flac_pallas``
+(``lpc_restore_grouped`` and its wrappers ``lpc_restore_pallas``,
+``lpc_restore_scan`` and ``lpc_restore_sharded``).
+
+The wrapper takes the JAX flat-lane wrapper's layout: warmup + residuals
+``int32[S, T]``, one row per subframe, with per-row order, shift and block
+length ``int32[S]`` and coefficients ``int32[S, >= K]`` (coefficient j
+multiplies ``v[i-1-j]``). Both versions accumulate in int64: inside the
+Pallas limb kernel's exactness domain (``|v| < 2^25``, ``|c| <= 2^15``:
+every stream of depth <= 24) they equal it bit for bit; outside it they
+follow the int64 host restore, with each restored sample stored as int32.
+A tensor on the CPU goes to the plain version; a tensor on a CUDA device
+goes to the kernel, or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._wrap import check_lane_vector, check_rows, stream_of
+
+ORDER_BUCKETS = (4, 8, 16, 32)
+
+
+def order_bucket(max_order: int) -> int:
+    """Tap count compiled for a batch: its maximum order rounded up to 4, 8,
+    16 or 32 (``flac_pallas._order_bucket``)."""
+    return next((k for k in ORDER_BUCKETS if max_order <= k), 32)
+
+
+def _check(vals, orders, shifts, blocks, coefs, K):
+    check_rows("vals", vals, torch.int32)
+    for name, t in (("orders", orders), ("shifts", shifts), ("blocks", blocks)):
+        check_lane_vector(name, t, torch.int32, vals)
+    if coefs.dtype != torch.int32 or coefs.dim() != 2 or coefs.shape[0] != vals.shape[0] \
+            or coefs.device != vals.device:
+        raise ValueError(f"coefs must be int32[S, K] on {vals.device}, "
+                         f"got {coefs.dtype}{list(coefs.shape)} on {coefs.device}")
+    if K is None:
+        K = order_bucket(int(orders.max()) if orders.numel() else 1)
+    if K not in ORDER_BUCKETS or coefs.shape[1] < K:
+        raise ValueError(f"K must be one of {ORDER_BUCKETS} and at most coefs' "
+                         f"{coefs.shape[1]} columns, got {K}")
+    return K
+
+
+def lpc_restore_ref(vals, orders, shifts, blocks, coefs, K: int | None = None) -> torch.Tensor:
+    """The restore as a torch loop over time, the rows vectorised in int64:
+    ``v[i] += (sum_j c[j] v[i-1-j] << max(-shift, 0)) >> max(shift, 0)``
+    where ``0 < order <= i < block``; the sum of int32 results wraps."""
+    lpc_restore_ref.calls += 1
+    K = _check(vals, orders, shifts, blocks, coefs, K)
+    out = vals.clone()
+    S, T = out.shape
+    if S == 0 or T == 0:
+        return out
+    c = coefs[:, :K].to(torch.int64)
+    left = (-shifts).clamp(0, 63).to(torch.int64)
+    right = shifts.clamp(0, 63).to(torch.int64)
+    live = orders > 0
+    for i in range(1, T):
+        o = min(i, K)
+        window = out[:, i - o: i].flip(1).to(torch.int64)  # newest first
+        pred = ((window * c[:, :o]).sum(1) << left) >> right
+        upd = live & (i >= orders) & (i < blocks)
+        out[:, i] = torch.where(upd, (out[:, i] + pred).to(torch.int32), out[:, i])
+    return out
+
+
+lpc_restore_ref.calls = 0
+
+
+def lpc_restore_kernel(vals, orders, shifts, blocks, coefs, K: int | None = None) -> torch.Tensor:
+    """int32[S, T] warmup + residuals -> int32[S, T] restored samples. The
+    CUDA kernel ``aukit_lpc_restore`` replaces ``lpc_restore_grouped``
+    (aukit_tpu/kernels/flac_pallas.py:131). ``K`` is the tap count (4, 8,
+    16 or 32, at least the batch's maximum order); without it the wrapper
+    reads the orders, which on a card waits for the device."""
+    if vals.device.type == "cpu":
+        return lpc_restore_ref(vals, orders, shifts, blocks, coefs, K)
+    K = _check(vals, orders, shifts, blocks, coefs, K)
+    if not vals.is_contiguous():
+        raise ValueError("vals must be contiguous")
+    S, T = vals.shape
+    out = torch.empty_like(vals)
+    if S == 0 or T == 0:
+        return out
+    taps = coefs[:, :K].contiguous()
+    with torch.cuda.device(vals.device):
+        rc = _build.load().aukit_lpc_restore(
+            vals.data_ptr(), orders.data_ptr(), shifts.data_ptr(), blocks.data_ptr(),
+            taps.data_ptr(), out.data_ptr(), S, T, K, stream_of(vals))
+    _build.check(rc, "aukit_lpc_restore")
+    lpc_restore_kernel.launches += 1
+    return out
+
+
+lpc_restore_kernel.launches = 0
+
+KERNELS = (lpc_restore_kernel,)
+PLAIN = (lpc_restore_ref,)

@@ -4,20 +4,24 @@ Run from the repository root on a machine with the card and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from aukit_tpu_torch/csrc, checks them against
-golden vectors and against their plain PyTorch versions on the card (also at
-the main paths' own shapes and bytes), checks the CUDA engine against the CPU
-engine, drives the two main paths at full width (the batched DFPWM -> 48 kHz
-int8 engine, and a 32768-lane block-codec fleet of IMA, MS ADPCM, QOA, PCM16
-and µ-law lanes), and times the kernels. Each phase prints one line; any
-failure raises, so the exit code is non-zero and the closing result line is
-not printed. It exits non-zero at once without a CUDA device. Imports only
-torch, numpy and aukit_tpu_torch.
+It builds the CUDA kernels from aukit_tpu_torch/csrc and the native FLAC
+parser, checks the kernels against golden vectors and against their plain
+PyTorch versions on the card (also at the main paths' own shapes and bytes),
+checks the CUDA engines against the CPU engines, drives the three main paths
+at full width (the batched DFPWM -> 48 kHz int8 engine, a 32768-lane
+block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, and a
+2048-lane drip-fed FLAC fleet), and times the kernels. Each phase prints one
+line; any failure raises, so the exit code is non-zero and the closing
+result line is not printed. It exits non-zero at once without a CUDA device.
+Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
+struct only).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -25,16 +29,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, LaneSpec, kernels
+from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, FlacFleet, LaneSpec, kernels
 from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState, dfpwm_encode
 from aukit_tpu_torch.kernels import _build
 from aukit_tpu_torch.kernels import adpcm_cuda as ka
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc
+from aukit_tpu_torch.kernels import flac_cuda as kg
 from aukit_tpu_torch.kernels import fma_cuda as kf
+from aukit_tpu_torch.kernels import iir_cuda as kh
 from aukit_tpu_torch.kernels import qoa_cuda as kq
+from aukit_tpu_torch.native import flacbits
 from aukit_tpu_torch.parallel.pipeline import fir_alpha
 from aukit_tpu_torch.stream import batch_codecs as bc
+from aukit_tpu_torch.stream import flac_fleet as ff
 
 ROOT = Path(__file__).resolve().parent
 FULL_LANES = 32768  # bench.py's headline fleet: 8 groups of 4096 streams
@@ -135,13 +143,48 @@ def phase_device() -> str:
     return smi
 
 
+def demangle(sym: str) -> str:
+    """``name<template values>`` of a mangled kernel symbol (its identifier
+    is the one that carries its own length and ends in ``_kernel``)."""
+    for m in re.finditer(r"\d+", sym):
+        for k in range(len(m.group())):
+            n = int(m.group()[k:])
+            name = sym[m.end(): m.end() + n]
+            if n and name.endswith("_kernel") and re.fullmatch(r"[a-z_]+", name):
+                t = re.match(r"I((?:L\w\d+E)+)E", sym[m.end() + n:])
+                args = re.findall(r"L\w(\d+)E", t.group(1)) if t else []
+                return name + (f"<{','.join(args)}>" if args else "")
+    return sym
+
+
+def kernel_resources(log: str) -> dict:
+    """Registers and spill bytes of each kernel, from ptxas -v's report in
+    the build log: {kernel<template args>: (registers, spill stores, spill
+    loads)}."""
+    out, name, spills = {}, None, (0, 0)
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            name = demangle(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            out[name] = (int(m.group(1)), *spills)
+    return out
+
+
 def phase_build() -> None:
+    """The CUDA kernels (one nvcc per source, in parallel) and the native
+    FLAC parser (g++), both from the checkout."""
     t0 = time.perf_counter()
     _build.load()
-    log = (_build.BUILD_DIR / "build.log")
-    regs = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] \
-        if log.exists() else []
-    say("build", seconds=round(time.perf_counter() - t0, 3), ptxas=json.dumps(regs))
+    t1 = time.perf_counter()
+    check(flacbits.available(), f"the native FLAC parser builds from {flacbits.SRC}")
+    res = kernel_resources((_build.BUILD_DIR / "build.log").read_text())
+    spilled = {k: v for k, v in res.items() if v[1] or v[2]}
+    check(len(res) >= 10, f"ptxas reported every kernel ({sorted(res)})")
+    say("build", seconds=round(t1 - t0, 3), flac_parser_seconds=round(time.perf_counter() - t1, 3),
+        kernels=len(res), registers=json.dumps({k: v[0] for k, v in res.items()}),
+        spills=json.dumps(spilled))
 
 
 def phase_golden() -> None:
@@ -882,6 +925,461 @@ def phase_block_times() -> dict:
         gbytes_per_s=round(rows * cols * 12 / times["fma"][0] / 1e6, 1))
     return times
 
+# -- the FLAC fleet ---------------------------------------------------------------------------
+
+FLAC_LANES = 2048  # one fleet: 1024 lanes of bench.py config 7's stream, 1024 stereo lanes
+FLAC_SECONDS = 8
+FLAC_DRIP = 1 << 17  # bytes per lane per step (bench.py:558)
+FLAC_N = 4096  # block size (bench.py:370; flac -5)
+FLAC_CHECK_LANES = 64
+LPC8 = [120, -60, 30, -15, 8, -4, 2, -1]  # bench.py:371: order 8, shift 9
+LPC_ROWS = 32768  # kernel (g)'s profile shape (flac_pallas.py:47-49): 32768 rows x 4096
+
+
+def load_fixtures():
+    """tests/fixtures.py (numpy and struct only), by path: on the card's
+    machine ``tests`` may name another installed package."""
+    spec = importlib.util.spec_from_file_location("aukit_fixtures", ROOT / "tests" / "fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def past8(sig: np.ndarray) -> np.ndarray:
+    """int64[n - 8, 8]: row i - 8 holds sig[i - 1 - j] in column j."""
+    return np.lib.stride_tricks.sliding_window_view(sig, 8)[:-1, ::-1]
+
+
+def bench_subframe(rng, n: int) -> dict:
+    """bench.py:370-382's subframe: the order-8 residual of a random walk,
+    Rice parameter 7 in 4 partitions."""
+    sig = np.cumsum(rng.integers(-60, 60, n)).astype(np.int64)
+    res = sig[8:] - ((past8(sig) @ np.array(LPC8)) >> 9)
+    return {"type": "lpc", "order": 8, "warmup": [int(v) for v in sig[:8]], "precision": 8,
+            "shift": 9, "coefs": LPC8, "residuals": [int(v) for v in res], "param": 7,
+            "partition_order": 2}
+
+
+def fitted_subframe(sig: np.ndarray) -> dict:
+    """An encoder-like LPC-8 subframe: least-squares coefficients quantised to
+    12 bits, and the best single Rice parameter for the residual."""
+    win = past8(sig)
+    a = np.linalg.lstsq(win.astype(np.float64), sig[8:].astype(np.float64), rcond=None)[0]
+    shift = int(np.clip(np.floor(np.log2(2047 / max(np.abs(a).max(), 1e-6))), 0, 15))
+    coefs = np.clip(np.round(a * (1 << shift)), -2048, 2047).astype(np.int64)
+    res = sig[8:] - ((win @ coefs) >> shift)
+    u = np.where(res >= 0, 2 * res, -2 * res - 1)
+    return {"type": "lpc", "order": 8, "warmup": [int(v) for v in sig[:8]], "precision": 12,
+            "shift": shift, "coefs": [int(c) for c in coefs], "residuals": [int(v) for v in res],
+            "param": int(np.clip(np.log2(max(u.mean(), 1.0)), 0, 14)), "partition_order": 0}
+
+
+def stereo_frame(fx, rng, n: int, rate: int, asgn: int) -> bytes:
+    """One stereo frame of two tones and noise: mid/side (10) or left/side
+    (8), an encoder-like LPC-8 subframe for each channel."""
+    t = np.arange(n) / rate
+    f = rng.uniform(80, 2000, 2)
+    left = (6000 * np.sin(2 * np.pi * f[0] * t + rng.uniform(0, 6))
+            + 3000 * np.sin(2 * np.pi * f[1] * t) + rng.normal(0, 40, n)).astype(np.int64)
+    right = (0.7 * left + 2000 * np.sin(2 * np.pi * f[1] * 1.5 * t)
+             + rng.normal(0, 40, n)).astype(np.int64)
+    a, b = ((left + right) >> 1, left - right) if asgn == 10 else (left, left - right)
+    return fx.flac_frame([fitted_subframe(a), fitted_subframe(b)], n, asgn, 16)
+
+
+def flac_stream(fx, frames: list, rate: int, channels: int, order) -> bytes:
+    """A FLAC stream of the given frames in the given order."""
+    # bytes 5-6 of a fixtures.flac_frame header (frame number 0): block size - 1
+    n = sum(int.from_bytes(frames[k][5:7], "big") + 1 for k in order)
+    return fx.flac_stream_header(rate, channels, 16, n) + b"".join(frames[k] for k in order)
+
+
+def flac_main_streams(fx, variants: int = 4) -> list:
+    """The flac_fleet phase's lanes: the first half bench.py config 7's stream
+    (48 kHz mono LPC-8, block 4096), the second half 44.1 kHz mid/side
+    stereo LPC-8, block 4096; each ~FLAC_SECONDS long, built from
+    ``variants`` distinct frames per group repeated in turn, as bench.py
+    repeats ``one``. Lanes share ``variants`` byte strings per group."""
+    rng = np.random.default_rng(13)
+    mono = [fx.flac_frame([bench_subframe(rng, FLAC_N)], FLAC_N, 0, 16) for _ in range(variants)]
+    stereo = [stereo_frame(fx, rng, FLAC_N, 44100, 10) for _ in range(variants)]
+    out = []
+    for frames, rate, ch in ((mono, 48000, 1), (stereo, 44100, 2)):
+        nfr = -(-FLAC_SECONDS * rate // FLAC_N)
+        streams = [flac_stream(fx, frames, rate, ch, [(v + k) % variants for k in range(nfr)])
+                   for v in range(variants)]
+        out += [streams[i % variants] for i in range(FLAC_LANES // 2)]
+    return out
+
+
+def flac_check_streams(fx, lanes: int) -> list:
+    """The flac_engines phase's ragged fleet, four geometries in turn: 48 kHz
+    mono (bench.py's frames), 44.1 kHz mid/side, 32 kHz left/side at an odd
+    block size of 1000, and 48 kHz mono ending in a short frame of 1234
+    samples (its last step takes the staged route); 4-10 frames per lane."""
+    rng = np.random.default_rng(14)
+    mono = [fx.flac_frame([bench_subframe(rng, FLAC_N)], FLAC_N, 0, 16) for _ in range(3)]
+    ms = [stereo_frame(fx, rng, FLAC_N, 44100, 10) for _ in range(3)]
+    ls = [stereo_frame(fx, rng, 1000, 32000, 8) for _ in range(3)]
+    short = [fx.flac_frame([bench_subframe(rng, 1234)], 1234, 0, 16)]
+    out = []
+    for lane in range(lanes):
+        order = [int(k) for k in rng.integers(0, 3, int(rng.integers(4, 11)))]
+        g = lane % 4
+        if g == 0:
+            out.append(flac_stream(fx, mono, 48000, 1, order))
+        elif g == 1:
+            out.append(flac_stream(fx, ms, 44100, 2, order))
+        elif g == 2:
+            out.append(flac_stream(fx, ls, 32000, 2, order * 3))
+        else:
+            out.append(flac_stream(fx, mono + short, 48000, 1, order + [3]))
+    return out
+
+
+def run_flac(fleet, streams, drip: int, volumes=()):
+    """Feed ``drip`` bytes per lane per step, then EOF, and step to the end;
+    -> (every step's result, every lane's checkpoint)."""
+    for lane, vol in volumes:
+        fleet.set_volume(lane, vol, ramp=True)
+    off = 0
+    steps = []
+    while not fleet.done:
+        for lane, data in enumerate(streams):
+            if off < len(data):
+                fleet.feed(lane, data[off: off + drip])
+            elif off - drip < len(data):
+                fleet.feed(lane, None)
+        off += drip
+        steps.append(fleet.step())
+        check(len(steps) < 10_000, "the fleet ends")
+    return steps, [fleet.checkpoint(lane) for lane in range(len(streams))]
+
+
+def flac_steps_diff(a, b) -> float:
+    """max |window difference| of two runs; raises if their masks,
+    positions or step structure differ."""
+    check(len(a) == len(b), f"step counts {len(a)} == {len(b)}")
+    err = 0.0
+    for x, y in zip(a, b):
+        check((x is None) == (y is None), "the same steps emit windows")
+        if x is not None:
+            check(np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2]),
+                  "masks and positions equal")
+            check(x[0].shape == y[0].shape and bool(np.isfinite(x[0]).all()), "window shapes")
+            err = max(err, float(np.abs(x[0] - y[0]).max()))
+    return err
+
+
+def checkpoints_equal(a, b) -> bool:
+    return all(x.keys() == y.keys() and all(
+        np.array_equal(np.asarray(x[k], dtype=object), np.asarray(y[k], dtype=object))
+        for k in x) for x, y in zip(a, b, strict=True))
+
+
+def phase_flac_kernel_vs_plain() -> dict:
+    """Kernels (g) and (h) against their plain versions on the same CUDA
+    tensors, max |error| 0: small ragged shapes (every tap bucket K, shifts
+    0, 15, 17, 20, 31 and negative, ragged blocks), then (g) at 32768 x 4096
+    order 8 and at K = 32 on 4096 x 1024, and (h) at 32768 x 4096."""
+    rng = np.random.default_rng(15)
+    errs = {"lpc_restore": 0, "iir_zero": 0}
+    cases = [(1, 1, 1), (65, 70, 3), (300, 257, 8), (130, 600, 13), (70, 300, 32)]
+    for rows, T, order in cases:
+        args = lpc_args(rng, rows, T, order)
+        ok, err = same(kg.lpc_restore_kernel(*args), kg.lpc_restore_ref(*args))
+        errs["lpc_restore"] = max(errs["lpc_restore"], err)
+        check(ok, f"lpc_restore kernel == plain at {rows} x {T}, order {order}")
+    for rows, T in ((1, 1), (65, 70), (300, 4458)):
+        x = torch.tensor((rng.standard_normal((rows, T)) * 0.5).astype(np.float32), device="cuda")
+        for alpha in (fir_alpha(44100, 48000), 0.12):
+            ok = torch.equal(kh.iir_zero_kernel(x, alpha), kh.iir_zero_ref(x, alpha))
+            check(ok, f"iir_zero kernel == plain at {rows} x {T}")
+    say("kernel_vs_plain", kernel="lpc_restore", shapes=json.dumps(cases), out_equal=True)
+    say("kernel_vs_plain", kernel="iir_zero", shapes="[[1,1],[65,70],[300,4458]]", out_equal=True)
+    lpc = (kg.lpc_restore_kernel, kg.lpc_restore_ref)
+    for name, key, (kernel, plain), make in (
+            ("lpc_restore", "lpc_restore", lpc, lambda: lpc_bench_args(rng, LPC_ROWS, FLAC_N)),
+            ("lpc_restore_k32", "lpc_restore", lpc, lambda: lpc_args(rng, 4096, 1024, 32)),
+            ("iir_zero", "iir_zero", (kh.iir_zero_kernel, kh.iir_zero_ref),
+             lambda: iir_args(rng, LPC_ROWS, FLAC_N))):
+        args = make()
+        out, ms = timed(lambda: kernel(*args))
+        ref, plain_ms = timed(lambda: plain(*args))
+        ok = torch.equal(out, ref)
+        err = 0 if ok else float((out.double() - ref.double()).abs().max())
+        errs[key] = max(errs[key], err)
+        say("kernel_vs_plain_main_shape", kernel=name, rows=out.shape[0], samples=out.shape[1],
+            out_equal=ok, ms=round(ms, 4), plain_ms=round(plain_ms, 2))
+        check(ok, f"{name} kernel == plain at {tuple(out.shape)}")
+        del args, out, ref
+        torch.cuda.empty_cache()
+    return errs
+
+
+def lpc_args(rng, rows: int, T: int, max_order: int) -> tuple:
+    """Kernel (g)'s arguments as test_flac_lpc_pallas_matches_int64 makes
+    them: orders up to ``max_order``, every kind of shift, ragged blocks."""
+    orders = rng.integers(0, max_order + 1, rows)
+    orders[0] = max_order
+    shifts = rng.choice([0, 5, 9, 12, 15, 17, 20, 31, -1, -3, 14], rows)
+    blocks = rng.integers(max(1, T // 2), T + 1, rows)
+    coefs = np.where(np.arange(32)[None, :] < orders[:, None],
+                     rng.integers(-(1 << 14), (1 << 14) + 1, (rows, 32)), 0)
+    vals = rng.integers(-2000, 2000, (rows, T))
+    vals = np.where(np.arange(T)[None, :] < orders[:, None],
+                    rng.integers(-30000, 30000, (rows, T)), vals)
+    neg = shifts < 0
+    coefs[neg] //= 1 << 12
+    vals[neg] = np.clip(vals[neg], -3, 3)
+    return tuple(cuda_i32(a) for a in (vals, orders, shifts, blocks, coefs))
+
+
+def cuda_generator(rng) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 31)))
+
+
+def lpc_bench_args(rng, rows: int, T: int) -> tuple:
+    """Kernel (g)'s arguments at bench.py's stream, made on the card: order
+    8, shift 9, full blocks, a random walk's residuals."""
+    sig = torch.randint(-60, 60, (rows, T), device="cuda", generator=cuda_generator(rng)).cumsum(1)
+    pred = torch.zeros_like(sig)
+    for j, c in enumerate(LPC8):  # pred[i] = sum_j c_j sig[i - 1 - j]
+        pred[:, 8:] += c * sig[:, 7 - j: T - 1 - j]
+    vals = torch.where(torch.arange(T, device="cuda") < 8, sig, sig - (pred >> 9))
+    coefs = torch.zeros((rows, 32), dtype=torch.int32, device="cuda")
+    coefs[:, :8] = torch.tensor(LPC8, dtype=torch.int32, device="cuda")
+
+    def lane(v):
+        return torch.full((rows,), v, dtype=torch.int32, device="cuda")
+
+    return vals.to(torch.int32), lane(8), lane(9), lane(T), coefs
+
+
+def iir_args(rng, rows: int, T: int) -> tuple:
+    x = torch.randn((rows, T), device="cuda", generator=cuda_generator(rng)) * 0.3
+    return x, fir_alpha(44100, 48000)
+
+
+def phase_flac_engines(fx) -> None:
+    """The CUDA FLAC fleet against the same fleet on the CPU (the kernels'
+    plain versions) on a ragged 64-lane fleet of four geometries, volume
+    ramps in flight: windows, masks, positions and checkpoints bit-equal,
+    and within the reference's 5e-3 of the host route. The device-resident
+    route in all four interpolation modes and with mono=False, and the
+    staged route (on a fleet of one geometry, the route's condition)."""
+    streams = flac_check_streams(fx, FLAC_CHECK_LANES)
+    vols = [(1, 0.5), (6, 1.4), (11, 0.2)]
+    cases = [("resident", mode, True, {"device_restore": True}, streams)
+             for mode in ("none", "linear", "cubic", "sinc")]
+    cases.append(("resident", "linear", False, {"device_restore": True}, streams))
+    cases.append(("staged", "cubic", True, {"device_restore": False},
+                  [streams[1 + 4 * (i % (FLAC_CHECK_LANES // 4))] for i in range(FLAC_CHECK_LANES)]))
+    for route, mode, mono, kw, lanes in cases:
+        counts = (kg.lpc_restore_kernel.launches, kh.iir_zero_kernel.launches)
+        t0 = time.perf_counter()
+        got, ck_got = run_flac(FlacFleet(len(lanes), device_dsp=True, mono=mono,
+                                         interpolation=mode, device="cuda", **kw),
+                               lanes, 1 << 16, vols)
+        t1 = time.perf_counter()
+        want, ck_want = run_flac(FlacFleet(len(lanes), device_dsp=True, mono=mono,
+                                           interpolation=mode, device="cpu", **kw),
+                                 lanes, 1 << 16, vols)
+        t2 = time.perf_counter()
+        host, _ = run_flac(FlacFleet(len(lanes), mono=mono, interpolation=mode, device="cpu"),
+                           lanes, 1 << 16, vols)
+        err, err_host = flac_steps_diff(got, want), flac_steps_diff(got, host)
+        launched = (kg.lpc_restore_kernel.launches - counts[0],
+                    kh.iir_zero_kernel.launches - counts[1])
+        say("flac_engine_cuda_vs_cpu", route=route, mode=mode, mono=mono, lanes=len(lanes),
+            steps=len(got), max_abs_err=err, checkpoints_equal=checkpoints_equal(ck_got, ck_want),
+            max_abs_err_vs_host=err_host, lpc_launches=launched[0], iir_launches=launched[1],
+            cuda_seconds=round(t1 - t0, 3), cpu_seconds=round(t2 - t1, 3))
+        check(err == 0 and checkpoints_equal(ck_got, ck_want),
+              f"{route}/{mode}: CUDA fleet == CPU fleet")
+        check(err_host <= 5e-3, f"{route}/{mode}: within 5e-3 of the host route")
+        check(launched[1] > 0 and (launched[0] > 0) == kw["device_restore"],
+              f"{route}/{mode}: the route's kernels ran")
+
+
+def feed_step(fleet, streams, off: int, drip: int) -> None:
+    """One step's feed of the main fleet: each distinct byte string is cut
+    once and handed to every lane that carries it."""
+    cut = {}
+    for lane, data in enumerate(streams):
+        key = id(data)
+        if key not in cut:
+            cut[key] = data[off: off + drip] if off < len(data) else (
+                None if off - drip < len(data) else False)
+        if cut[key] is not False:
+            fleet.feed(lane, cut[key])
+
+
+def phase_flac_fleet(streams) -> dict:
+    """The FLAC main path at full width, through the fleet's entry points:
+    2048 drip-fed lanes, FLAC_SECONDS each, FLAC_DRIP bytes per lane per
+    step, device-resident route (two geometry groups per step: the 48 kHz
+    identity rate and 44.1 -> 48 kHz). Launch counts are zeroed just before
+    and read just after. Then the first window of 8 lanes against the CPU
+    fleet (plain versions: bit-equal) and the host route (5e-3)."""
+    kernels.reset_counts()
+    t0 = sync_time()
+    fleet = FlacFleet(FLAC_LANES, device_restore=True, device_dsp=True, device="cuda")
+    sub = [0, 1, 2, 3, FLAC_LANES - 4, FLAC_LANES - 3, FLAC_LANES - 2, FLAC_LANES - 1]
+    off, windows, kept, level = 0, 0, [], []
+    while not fleet.done:
+        feed_step(fleet, streams, off, FLAC_DRIP)
+        off += FLAC_DRIP
+        r = fleet.step()
+        if r is not None:
+            w, mask, _pos = r
+            check(w.shape == (FLAC_LANES, 48000) and bool(np.isfinite(w).all())
+                  and float(np.abs(w).max()) <= 128.0, "flac window shape and range")
+            level.append(float(np.abs(w[mask]).mean()))
+            windows += 1
+        if len(kept) < 3:  # the first steps' rows of the compared lanes
+            kept.append(np.zeros((len(sub), 48000), np.float32) if r is None else r[0][sub].copy())
+    dt = sync_time() - t0
+    launches = {"lpc_restore": kg.lpc_restore_kernel.launches,
+                "iir_zero": kh.iir_zero_kernel.launches, "fma": kf.fma_kernel.launches}
+    plain = {fn.__name__: fn.calls for fn in kernels.PLAIN}
+    audio = fleet.metrics.samples_decoded / 48000
+    say("main_path", case="flac_fleet", lanes=FLAC_LANES, seconds_per_lane=FLAC_SECONDS,
+        drip=FLAC_DRIP, steps=fleet.metrics.steps, windows=windows, seconds=round(dt, 4),
+        audio_seconds=round(audio, 1), realtime_factor=round(audio / dt, 1),
+        launches=json.dumps(launches), plain_calls=sum(plain.values()))
+    check(launches["lpc_restore"] > 0 and launches["iir_zero"] > 0 and launches["fma"] > 0,
+          f"kernels (g), (h) and the FMA launched by the FLAC fleet ({launches})")
+    check(all(n == 0 for n in plain.values()), f"no plain version on the CUDA path ({plain})")
+    check(audio >= FLAC_LANES * FLAC_SECONDS, "every lane decoded its seconds")
+
+    # the first three steps of 8 lanes (both groups) against the same lanes
+    # on the CPU: the kernels' plain versions, and the host route (a step
+    # with no window counts as masked silence)
+    errs = {}
+    for name, kw in (("cpu", {"device_restore": True, "device_dsp": True}), ("host", {})):
+        cpu = FlacFleet(len(sub), device="cpu", **kw)
+        got = []
+        for k in range(len(kept)):
+            feed_step(cpu, [streams[i] for i in sub], k * FLAC_DRIP, FLAC_DRIP)
+            r = cpu.step()
+            got.append(np.zeros((len(sub), 48000), np.float32) if r is None else r[0])
+        errs[name] = max(float(np.abs(a - b).max()) for a, b in zip(kept, got))
+    check(any(a.any() for a in kept), "the compared steps carry audio")
+    say("flac_fleet_output", compared_lanes=len(sub), compared_steps=len(kept),
+        max_abs_err_vs_cpu=errs["cpu"], max_abs_err_vs_host=errs["host"],
+        mean_abs_level_median=round(float(np.median(level)), 3))
+    check(errs["cpu"] == 0, "flac fleet's first windows == CPU fleet on 8 lanes")
+    check(errs["host"] <= 5e-3, "flac fleet's first windows within 5e-3 of the host route")
+    check(float(np.median(level)) > 1.0, "the windows carry audio")
+    return launches
+
+
+def phase_flac_step_breakdown(streams) -> dict:
+    """Where the time of one FLAC fleet step goes: a fresh fleet steps once
+    on one drip (allocations; the arguments of kernels (g) and (h) are kept),
+    then one steady step under torch.profiler: its wall time, the host parse
+    (``_parse_step``), the staging of the restore batch (host time from
+    ``_device_full_step``'s start to the restore's launch, pageable copies
+    included), the device time of (g), (h), the FMA kernel, the host<->device
+    copies and the other torch ops, and the device's busy share. Then (g)
+    and (h) against their plain versions on the kept arguments (one real
+    step's restore batch and lowpass rows)."""
+    fleet = FlacFleet(FLAC_LANES, device_restore=True, device_dsp=True, device="cuda")
+    clock = {"parse": 0.0, "stage": 0.0, "start": None}
+    kept = {}
+
+    def timed_parse(orig=fleet._parse_step):
+        t0 = time.perf_counter()
+        r = orig()
+        clock["parse"] += time.perf_counter() - t0
+        return r
+
+    def timed_full(parsed, orig=fleet._device_full_step):
+        clock["start"] = time.perf_counter()
+        return orig(parsed)
+
+    def restore(*a, **k):
+        clock["stage"] += time.perf_counter() - clock["start"]
+        kept.setdefault("lpc", (a, k))
+        return kg.lpc_restore_kernel(*a, **k)
+
+    def lowpass(*a):
+        kept.setdefault("iir", a)
+        return kh.iir_zero_kernel(*a)
+
+    fleet._parse_step, fleet._device_full_step = timed_parse, timed_full
+    ff.lpc_restore_kernel, ff.iir_zero_kernel = restore, lowpass
+    try:
+        feed_step(fleet, streams, 0, FLAC_DRIP)
+        t0 = sync_time()
+        fleet.step()
+        first_ms = (sync_time() - t0) * 1e3
+        ff.iir_zero_kernel = kh.iir_zero_kernel
+        clock["parse"] = clock["stage"] = 0.0
+        feed_step(fleet, streams, FLAC_DRIP, FLAC_DRIP)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = sync_time()
+            fleet.step()
+            wall = (sync_time() - t0) * 1e3
+    finally:
+        ff.lpc_restore_kernel, ff.iir_zero_kernel = kg.lpc_restore_kernel, kh.iir_zero_kernel
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {"lpc_restore": "lpc_restore_kernel", "iir_zero": "iir_zero_kernel",
+             "fma": "fma_kernel", "htod": "Memcpy HtoD", "dtoh": "Memcpy DtoH"}
+    spans = {k: [(e.time_range.start, e.time_range.end) for e in dev if v in e.name]
+             for k, v in names.items()}
+    spans["other"] = [(e.time_range.start, e.time_range.end) for e in dev
+                      if not any(v in e.name for v in names.values())]
+    everything = [iv for ivs in spans.values() for iv in ivs]
+    kernels_only = [iv for k, ivs in spans.items() if k not in ("htod", "dtoh") for iv in ivs]
+    rows = kept["lpc"][0][0].shape
+    say("step_breakdown", case="flac_fleet", lanes=FLAC_LANES, first_step_ms=round(first_ms, 3),
+        profiled_step_ms=round(wall, 3), host_parse_ms=round(clock["parse"] * 1e3, 3),
+        staging_host_ms=round(clock["stage"] * 1e3, 3), restore_rows=rows[0],
+        **{f"{k}_ms": round(busy_ms(v), 3) for k, v in spans.items()},
+        device_events=len(dev), busy_kernels=round(busy_ms(kernels_only) / wall, 4),
+        busy_with_copies=round(busy_ms(everything) / wall, 4))
+    del fleet
+    errs = {}
+    for name, kernel, plain, (args, kw) in (
+            ("lpc_restore", kg.lpc_restore_kernel, kg.lpc_restore_ref, kept["lpc"]),
+            ("iir_zero", kh.iir_zero_kernel, kh.iir_zero_ref, (kept["iir"], {}))):
+        out, ms = timed(lambda: kernel(*args, **kw))
+        ref, plain_ms = timed(lambda: plain(*args, **kw))
+        ok = torch.equal(out, ref)
+        errs[name] = 0 if ok else float((out.double() - ref.double()).abs().max())
+        say("kernel_vs_plain_fleet_step", kernel=name, rows=out.shape[0], samples=out.shape[1],
+            out_equal=ok, ms=round(ms, 4), plain_ms=round(plain_ms, 2))
+        check(ok, f"{name} kernel == plain on one fleet step's arguments")
+        del out, ref
+    del kept
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_flac_times() -> dict:
+    """Kernels (g) and (h) against their plain versions at the main shapes
+    (32768 x 4096; (g) at order 8), by CUDA events, in turns kernel, plain,
+    kernel, plain."""
+    rng = np.random.default_rng(16)
+    times = {}
+    for name, args, kernel, plain in (
+            ("lpc_restore", lpc_bench_args(rng, LPC_ROWS, FLAC_N), kg.lpc_restore_kernel,
+             kg.lpc_restore_ref),
+            ("iir_zero", iir_args(rng, LPC_ROWS, FLAC_N), kh.iir_zero_kernel, kh.iir_zero_ref)):
+        kernel(*args)
+        k1, p1 = event_ms(lambda: kernel(*args), 10), event_ms(lambda: plain(*args), 1)
+        k2, p2 = event_ms(lambda: kernel(*args), 10), event_ms(lambda: plain(*args), 1)
+        times[name] = (min(k1, k2), min(p1, p2))
+        say("time", kernel=name, rows=LPC_ROWS, samples=FLAC_N, ms=round(times[name][0], 4),
+            plain_ms=round(times[name][1], 2),
+            gsamples_per_s=round(LPC_ROWS * FLAC_N / times[name][0] / 1e6, 2))
+        del args
+        torch.cuda.empty_cache()
+    return times
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -909,8 +1407,21 @@ def main() -> None:
     phase_block_step_breakdown(specs, groups)
     del specs, groups
     phase_block_engines()
+    fx = load_fixtures()
+    for name, err in phase_flac_kernel_vs_plain().items():
+        errs[name] = max(errs.get(name, 0), err)
+    phase_flac_engines(fx)
+    t0 = time.perf_counter()
+    flac_streams = flac_main_streams(fx)
+    say("flac_fleet_bytes", lanes=FLAC_LANES, distinct_streams=len({id(s) for s in flac_streams}),
+        bytes=sum(map(len, flac_streams)), build_seconds=round(time.perf_counter() - t0, 3))
+    flac_launches = phase_flac_fleet(flac_streams)
+    for name, err in phase_flac_step_breakdown(flac_streams).items():
+        errs[name] = max(errs[name], err)
+    del flac_streams
     times = phase_times()
     times.update(phase_block_times())
+    times.update(phase_flac_times())
     rows = (("dfpwm_decode", "dfpwm_decode", "dfpwm.cu", "aukit_tpu/kernels/dfpwm_pallas.py:113",
              launches),
             ("dfpwm_decode_dsp", "dfpwm_decode_dsp", "dfpwm.cu",
@@ -919,6 +1430,10 @@ def main() -> None:
             ("msadpcm_decode", "msadpcm", "adpcm.cu", "aukit_tpu/kernels/msadpcm_pallas.py:104",
              block_launches),
             ("qoa_lms", "qoa", "qoa.cu", "aukit_tpu/kernels/qoa_pallas.py:105", block_launches),
+            ("lpc_restore", "lpc_restore", "flac.cu", "aukit_tpu/kernels/flac_pallas.py:131",
+             flac_launches),
+            ("iir_zero", "iir_zero", "iir.cu", "aukit_tpu/kernels/iir_pallas.py:62",
+             flac_launches),
             # no Pallas kernel: XLA's fused multiply-add in the jitted dsp_chain
             ("fma", "fma", "fma.cu", "aukit_tpu/parallel/pipeline.py:97", block_launches))
     say("total", seconds=round(time.perf_counter() - t_start, 1))

@@ -257,6 +257,20 @@ while (r := eng.step()) is not None:
     windows.append(r[1])
 assert len(windows) == 2 and windows[0].all() and eng.done
 assert eng.checkpoint(0)["codec_state"] == []
+# the FLAC fleet: the host route, and the device-resident route on the CPU
+from tests import fixtures
+sig = [int(v) for v in rng.integers(-500, 500, 256)]
+frame = fixtures.flac_frame([{"type": "verbatim", "values": sig}], 256, 0, 16)
+data = fixtures.flac_stream_header(8000, 1, 16, 256 * 40) + frame * 40
+for kw in ({}, {"device_restore": True, "device_dsp": True}):
+    fleet = t.FlacFleet(2, device="cpu", **kw)
+    fleet.feed_many([data, data[:5000]])
+    fleet.feed_many([None, None])
+    r = fleet.step()
+    assert r[0].shape == (2, 48000) and r[1].all() and r[2].tolist() == [0.0, 0.0]
+    while fleet.step() is not None:
+        pass
+    assert fleet.done and fleet.checkpoint(0)["ended"]
 assert not any(m.startswith(("jax", "aukit_tpu.")) for m in sys.modules if sys.modules[m])
 print("ok")
 """

@@ -7,6 +7,7 @@ runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -17,8 +18,10 @@ from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, LaneSpec
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.kernels import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
                                      dfpwm_decode_kernel, dfpwm_decode_ref, fma_kernel, fma_ref,
-                                     ima_decode_kernel, ima_decode_ref, msadpcm_decode_kernel,
-                                     msadpcm_decode_ref, qoa_lms_kernel, qoa_lms_ref)
+                                     iir_zero_kernel, iir_zero_ref, ima_decode_kernel,
+                                     ima_decode_ref, lpc_restore_kernel, lpc_restore_ref,
+                                     msadpcm_decode_kernel, msadpcm_decode_ref, qoa_lms_kernel,
+                                     qoa_lms_ref)
 
 needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
@@ -222,3 +225,98 @@ def test_block_fleet_engine_on_cuda_matches_cpu():
         (ima_decode_kernel, msadpcm_decode_kernel, qoa_lms_kernel), launches))
     assert_engines_equal(cuda, run_engine(lambda: BatchStreamEngine(specs, device="cpu"),
                                           feeds, vols))
+
+
+def lpc_rows(rng, rows, T, max_order):
+    """Restore arguments on the card: random orders up to ``max_order``,
+    shifts 0, 15, 17, 20, 31 and negative, ragged blocks, warmup samples
+    and residuals as test_flac_lpc_pallas_matches_int64 makes them."""
+    orders = rng.integers(0, max_order + 1, rows)
+    orders[0] = max_order
+    shifts = rng.choice([0, 5, 9, 12, 15, 17, 20, 31, -1, -3, 14], rows)
+    blocks = rng.integers(max(1, T // 2), T + 1, rows)
+    coefs = np.zeros((rows, 32), np.int64)
+    vals = rng.integers(-2000, 2000, (rows, T))
+    for r in range(rows):
+        coefs[r, :orders[r]] = rng.integers(-(1 << 14), (1 << 14) + 1, orders[r])
+        vals[r, :orders[r]] = rng.integers(-30000, 30000, orders[r])
+    neg = shifts < 0
+    coefs[neg] //= 1 << 12
+    vals[neg] = np.clip(vals[neg], -3, 3)
+    return tuple(cuda_i32(a) for a in (vals, orders, shifts, blocks, coefs))
+
+
+@pytest.mark.parametrize("rows,T,max_order", [(1, 1, 1), (65, 70, 3), (130, 300, 8),
+                                              (300, 257, 13), (70, 600, 32)])
+def test_lpc_restore_kernel_matches_plain(rows, T, max_order):
+    """Kernel (g) against its plain version, one case per tap bucket K."""
+    args = lpc_rows(np.random.default_rng(rows + max_order), rows, T, max_order)
+    got = lpc_restore_kernel(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, lpc_restore_ref(*args))
+
+
+@pytest.mark.parametrize("rows,T", [(1, 1), (65, 70), (300, 4458)])
+@pytest.mark.parametrize("alpha", [0.9568, 0.12])
+def test_iir_zero_kernel_matches_plain(rows, T, alpha):
+    """Kernel (h) against its plain version: the fused multiply-add sides
+    of every sample of the group of 8, rows not a multiple of the block."""
+    rng = np.random.default_rng(rows)
+    x = torch.tensor((rng.standard_normal((rows, T)) * 0.5).astype(np.float32), device="cuda")
+    got = iir_zero_kernel(x, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, iir_zero_ref(x, alpha))
+
+
+def test_flac_fleet_on_cuda_matches_cpu():
+    """Both FLAC device routes on the card against the same fleets on the
+    CPU (the kernels' plain versions): windows, masks, positions and
+    checkpoints bit-equal, and kernels (g) and (h) ran."""
+    from aukit_tpu_torch import FlacFleet
+
+    # by path: on a machine without this repository's conftest, ``tests`` may
+    # name another installed package
+    spec = importlib.util.spec_from_file_location("fixtures", Path(__file__).parent / "fixtures.py")
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    rng = np.random.default_rng(6)
+    frames = []
+    for k in range(6):
+        sig = np.cumsum(rng.integers(-60, 60, 1000))
+        frames.append(fixtures.flac_frame(
+            [{"type": "lpc", "order": 8, "warmup": [int(v) for v in sig[:8]], "precision": 8,
+              "shift": 9, "coefs": [120, -60, 30, -15, 8, -4, 2, -1],
+              "residuals": [int(v) for v in rng.integers(-300, 300, 992)]},
+             {"type": "fixed", "order": 2, "warmup": [1, -1],
+              "residuals": [int(v) for v in rng.integers(-200, 200, 998)]}],
+            1000, 10, 16, frame_number=k))
+    data = fixtures.flac_stream_header(44100, 2, 16, 6000) + b"".join(frames)
+    feeds = [data, data[: len(data) - 700], data]
+    for kw in ({"device_restore": True}, {"device_restore": False}):
+        counts = (lpc_restore_kernel.launches, iir_zero_kernel.launches)
+        runs = []
+        for device in ("cuda", "cpu"):
+            fleet = FlacFleet(3, device_dsp=True, device=device, interpolation="cubic", **kw)
+            fleet.set_volume(2, 0.4, ramp=True)
+            steps = []
+            for off in range(0, len(data), 5000):
+                for lane, d in enumerate(feeds):
+                    fleet.feed(lane, d[off: off + 5000])
+                steps.append(fleet.step())
+            for lane in range(3):
+                fleet.feed(lane, None)
+            while not fleet.done:
+                steps.append(fleet.step())
+            runs.append((steps, [fleet.checkpoint(lane) for lane in range(3)]))
+        (got, ck_got), (want, ck_want) = runs
+        assert len(got) == len(want) and any(s is not None for s in got)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            for a, b in zip(g or (), w or ()):
+                np.testing.assert_array_equal(a, b)
+        for x, y in zip(ck_got, ck_want):
+            for k in x:
+                np.testing.assert_array_equal(np.asarray(x[k], dtype=object),
+                                              np.asarray(y[k], dtype=object), err_msg=k)
+        assert iir_zero_kernel.launches > counts[1]
+        assert (lpc_restore_kernel.launches > counts[0]) == kw["device_restore"]
