@@ -1,5 +1,6 @@
-"""WAV ``fmt `` chunk parser — copied from ``aukit_tpu.containers.wav``
-(reference aukit.wav, aukit.lua:1472-1505). fmt codes: 1 PCM, 2 MS-ADPCM
+"""WAV ``fmt `` chunk parser and PCM header writer — copied from
+``aukit_tpu.containers.wav`` (reference aukit.wav, aukit.lua:1472-1505;
+Audio:wav, aukit.lua:942). fmt codes: 1 PCM, 2 MS-ADPCM
 (+coefficient table), 3 float, 6 A-law, 7 µ-law, 0x11 IMA ADPCM, 0xFFFE
 extensible with UUID dispatch including the DFPWM UUID (aukit.lua:126-140)."""
 
@@ -57,3 +58,18 @@ def parse_fmt(chunk: bytes):
     else:
         raise ValueError("unsupported WAV file")
     return data_type, channels, sample_rate, block_align, bit_depth, coefficients
+
+
+def pcm_wav_header(channels: int, sample_rate: int, bit_depth: int, payload_len: int) -> bytes:
+    """The PCM WAV header of the reference's Audio:wav (aukit.lua:942, no
+    metadata) for a known payload size: wraps a transcoded body so that
+    ``header + body`` equals the solo writer's file, RIFF size ``#data + 36``
+    included."""
+    if bit_depth not in (8, 16, 24, 32):
+        raise ValueError("invalid bit depth")
+    fmt = struct.pack("<HHIIHH", 1, channels, sample_rate,
+                      sample_rate * channels * bit_depth // 8,
+                      channels * bit_depth // 8, bit_depth)
+    return b"".join([b"RIFF", struct.pack("<I", payload_len + 36), b"WAVE",
+                     b"fmt ", struct.pack("<I", 16), fmt,
+                     b"data", struct.pack("<I", payload_len)])

@@ -1,10 +1,11 @@
-// DFPWM1a lane-batched decode kernels for Hopper (sm_90a), bound to Python
-// through a plain C interface (kernels/_build.py loads this file with ctypes;
-// kernels/dfpwm_cuda.py is the wrapper that checks and launches).
+// DFPWM1a lane-batched decode and encode kernels for Hopper (sm_90a), bound
+// to Python through a plain C interface (kernels/_build.py loads this file
+// with ctypes; kernels/dfpwm_cuda.py is the wrapper that checks and launches).
 //
-// Replaces the two Pallas TPU kernels of aukit_tpu/kernels/dfpwm_pallas.py:
+// Replaces the three Pallas TPU kernels of aukit_tpu/kernels/dfpwm_pallas.py:
 //   - dfpwm_decode      <- dfpwm_decode_grouped     (_decode_kernel, _decode_tile)
 //   - dfpwm_decode_dsp  <- dfpwm_decode_dsp_grouped (_decode_dsp_kernel)
+//   - dfpwm_encode      <- dfpwm_encode_grouped     (_encode_kernel)
 //
 // Design. DFPWM is strictly sequential in time and independent across
 // streams ("lanes"), so one thread owns one lane: its five int32 state words
@@ -65,21 +66,28 @@ struct Lane {
   int q, s, lb, pq, lp;
 };
 
+// The predictor the decoder and the encoder share (_decode_tile,
+// dfpwm_pallas.py:42-52; _encode_kernel, :307-314): moves the charge q toward
+// the bit's target at strength s and slews s. Returns bit == previous bit.
+__device__ __forceinline__ bool predict(int& q, int& s, int lb, int bit) {
+  const int target = bit ? 127 : -128;
+  int nq = q + ((s * (target - q) + PREC_HALF) >> PREC);
+  if (nq == q && nq != target) nq += bit ? 1 : -1;
+  const bool same = bit == lb;
+  int ns = s;
+  if (ns != (same ? STRENGTH_MAX : 0)) ns += same ? 1 : -1;
+  s = max(ns, STRENGTH_MIN);
+  q = nq;
+  return same;
+}
+
 // One bit of _decode_tile (dfpwm_pallas.py:42-59); returns the new lowpass.
 __device__ __forceinline__ int decode_bit(Lane& st, int bit) {
-  const int target = bit ? 127 : -128;
-  int nq = st.q + ((st.s * (target - st.q) + PREC_HALF) >> PREC);
-  if (nq == st.q && nq != target) nq += bit ? 1 : -1;
-  const bool same = bit == st.lb;
-  int ns = st.s;
-  if (ns != (same ? STRENGTH_MAX : 0)) ns += same ? 1 : -1;
-  ns = max(ns, STRENGTH_MIN);
-  const int aj = same ? nq : ((nq + st.pq + 1) >> 1);
+  const bool same = predict(st.q, st.s, st.lb, bit);
+  const int aj = same ? st.q : ((st.q + st.pq + 1) >> 1);
   st.lp += ((aj - st.lp) * LOWPASS_NUM + 0x80) >> 8;
-  st.q = nq;
-  st.s = ns;
   st.lb = bit;
-  st.pq = nq;
+  st.pq = st.q;
   return st.lp;
 }
 
@@ -178,6 +186,87 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
   }
 }
 
+// The encoder (_encode_kernel, dfpwm_pallas.py:288-344), the decoder's
+// mirror: here the input is the wide side, 8 int8 levels in for each byte
+// out. A block stages 8 * TILE_BYTES levels of each of its rows as 4-byte
+// words along the row (every row starts on a word: N is a multiple of 8 and
+// the wrapper hands over a word-aligned base), one thread encodes its lane
+// out of shared memory with the three state words (charge, strength,
+// previous bit) in registers, and the bytes go back through a second tile
+// along the rows. The level tile's row stride is 65 words, odd, so the
+// per-lane reads hit 32 distinct banks. The bit is 1 iff level > charge, or
+// level == charge == 127 (silence then encodes to alternating bits); 8 bits
+// pack LSB first. Per byte out the lane moves 9 bytes and runs 8 dependent
+// predictor steps of ~24 integer operations: at 32768 lanes (8 warps per SM)
+// the chain's latency bounds it before the bytes do, as in the decoder.
+constexpr int LEVEL_WORDS = TILE_BYTES * 2;     // 8 int8 levels = 2 words per byte out
+constexpr int LEVEL_STRIDE = LEVEL_WORDS + 1;   // 65 words: odd
+
+__global__ void __launch_bounds__(LANES)
+dfpwm_encode_kernel(const int8_t* __restrict__ levels,
+                    const int32_t* __restrict__ state_in,
+                    uint8_t* __restrict__ out, int32_t* __restrict__ state_out,
+                    int lanes, long long nbytes) {
+  __shared__ uint32_t level_tile[LANES * LEVEL_STRIDE];
+  __shared__ uint32_t byte_tile[LANES * IN_STRIDE / 4];
+  uint8_t* byte_w = reinterpret_cast<uint8_t*>(byte_tile);
+
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * LANES;
+  const int nlanes = min(LANES, lanes - lane0);
+  const bool active = tid < nlanes;
+  const int lane = lane0 + tid;
+
+  int q = 0, s = 0, lb = 0;
+  if (active) {
+    q = state_in[lane];
+    s = state_in[lanes + lane];
+    lb = state_in[2 * lanes + lane];
+  }
+
+  for (long long b0 = 0; b0 < nbytes; b0 += TILE_BYTES) {
+    const int nb = static_cast<int>(min(static_cast<long long>(TILE_BYTES), nbytes - b0));
+    const int words = 2 * nb;
+    for (int i = tid; i < nlanes * LEVEL_WORDS; i += LANES) {
+      const int r = i / LEVEL_WORDS, c = i % LEVEL_WORDS;
+      if (c < words) {
+        const uint32_t* row =
+            reinterpret_cast<const uint32_t*>(levels + ((lane0 + r) * nbytes + b0) * 8);
+        level_tile[r * LEVEL_STRIDE + c] = row[c];
+      }
+    }
+    __syncthreads();
+    if (active) {
+      for (int j = 0; j < nb; ++j) {
+        const uint32_t w[2] = {level_tile[tid * LEVEL_STRIDE + 2 * j],
+                               level_tile[tid * LEVEL_STRIDE + 2 * j + 1]};
+        int byte = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int level = static_cast<int8_t>(w[k >> 2] >> (8 * (k & 3)));
+          const int bit = (level > q || (level == q && q == 127)) ? 1 : 0;
+          predict(q, s, lb, bit);
+          lb = bit;
+          byte |= bit << k;
+        }
+        byte_w[tid * IN_STRIDE + j] = static_cast<uint8_t>(byte);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nlanes * TILE_BYTES; i += LANES) {
+      const int r = i / TILE_BYTES, c = i % TILE_BYTES;
+      if (c < nb) out[(lane0 + r) * nbytes + b0 + c] = byte_w[r * IN_STRIDE + c];
+    }
+    __syncthreads();  // the next tile overwrites both shared tiles
+  }
+
+  if (active) {
+    state_out[lane] = q;
+    state_out[lanes + lane] = s;
+    state_out[2 * lanes + lane] = lb;
+  }
+}
+
 int blocks_for(int lanes) { return (lanes + LANES - 1) / LANES; }
 
 }  // namespace
@@ -216,6 +305,17 @@ extern "C" int aukit_dfpwm_decode_dsp(const void* bytes, const void* state_in,
     dfpwm_decode_kernel<true, false><<<blocks_for(lanes), LANES, 0, s>>>(
         b, si, o, so, lanes, nbytes, alpha, m, nullptr, nullptr);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// levels i8[L,8B] (word-aligned), state_in/state_out i32[3,L] (charge,
+// strength, previous bit), out u8[L,B]; all contiguous. nbytes = B.
+extern "C" int aukit_dfpwm_encode(const void* levels, const void* state_in,
+                                  void* out, void* state_out, int lanes,
+                                  long long nbytes, void* stream) {
+  dfpwm_encode_kernel<<<blocks_for(lanes), LANES, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(levels), static_cast<const int32_t*>(state_in),
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(state_out), lanes, nbytes);
   return static_cast<int>(cudaGetLastError());
 }
 

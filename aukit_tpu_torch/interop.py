@@ -5,8 +5,13 @@ in leaf order (``codecs.dfpwm.FIELDS``), they map one to one onto the port's
 ``DfpwmState`` tensors. The block-codec kernels' states are tuples of int32
 arrays in both packages: IMA (predictor, step_index), int32[L] each; MS
 ADPCM (sample1, sample2, delta), int32[L] each; QOA (history, weights),
-int32[L, 4] each. Engine checkpoints need no conversion: both engines write
-the same keys and numpy types, and each restores the other's.
+int32[L, 4] each. Engine checkpoints need no conversion: both packages'
+engines write the same keys and types, and each restores the other's. A
+decode checkpoint's ``fir_state`` (and its ``dsp`` carries) is a float for
+mono engines and an f32[C] row for ``mono=False`` engines; an encode
+checkpoint (``BatchEncodeEngine``) holds ``codec_state`` (three ints:
+charge, strength, previous bit; ``[]`` for PCM lanes), ``volume``,
+``pending`` (int32[C, k] target ints), ``eof`` and ``samples_in``.
 """
 
 from __future__ import annotations

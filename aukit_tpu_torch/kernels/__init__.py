@@ -4,7 +4,7 @@ from . import adpcm_cuda, dfpwm_cuda, flac_cuda, fma_cuda, iir_cuda, qoa_cuda
 from .adpcm_cuda import (ima_decode_kernel, ima_decode_ref, msadpcm_decode_kernel,
                          msadpcm_decode_ref)
 from .dfpwm_cuda import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref, dfpwm_decode_kernel,
-                         dfpwm_decode_ref)
+                         dfpwm_decode_ref, dfpwm_encode_kernel, dfpwm_encode_ref)
 from .flac_cuda import lpc_restore_kernel, lpc_restore_ref
 from .fma_cuda import fma_kernel, fma_ref
 from .iir_cuda import iir_zero_kernel, iir_zero_ref
@@ -15,7 +15,8 @@ KERNELS = tuple(k for m in MODULES for k in m.KERNELS)
 PLAIN = tuple(p for m in MODULES for p in m.PLAIN)
 
 __all__ = ["dfpwm_decode_kernel", "dfpwm_decode_dsp_kernel", "dfpwm_decode_ref",
-           "dfpwm_decode_dsp_ref", "ima_decode_kernel", "ima_decode_ref",
+           "dfpwm_decode_dsp_ref", "dfpwm_encode_kernel", "dfpwm_encode_ref",
+           "ima_decode_kernel", "ima_decode_ref",
            "msadpcm_decode_kernel", "msadpcm_decode_ref", "qoa_lms_kernel", "qoa_lms_ref",
            "fma_kernel", "fma_ref", "lpc_restore_kernel", "lpc_restore_ref",
            "iir_zero_kernel", "iir_zero_ref",

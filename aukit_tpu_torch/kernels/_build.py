@@ -38,6 +38,7 @@ _SIGNATURES = {
     "aukit_dfpwm_decode": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_dfpwm_decode_dsp": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                                ctypes.c_float, _P, _P, _P, _P),
+    "aukit_dfpwm_encode": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_ima_decode": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_msadpcm_decode": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_qoa_lms": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),

@@ -1,11 +1,13 @@
-"""DFPWM1a decode kernels: CUDA C++ for Hopper (``csrc/dfpwm.cu``) and their
-plain PyTorch versions — counterpart of ``aukit_tpu.kernels.dfpwm_pallas``.
+"""DFPWM1a decode and encode kernels: CUDA C++ for Hopper (``csrc/dfpwm.cu``)
+and their plain PyTorch versions — counterpart of
+``aukit_tpu.kernels.dfpwm_pallas``.
 
 The wrappers keep the JAX convenience wrappers' layout
-(``dfpwm_decode_pallas`` / ``dfpwm_decode_dsp_pallas``): lane-major
-``uint8[L, B]`` bytes in, ``int8[L, 8B]`` samples out, so the two packages
-compare like with like. A tensor on the CPU goes to the plain version; a
-tensor on a CUDA device goes to the kernel, or the wrapper raises. Each
+(``dfpwm_decode_pallas`` / ``dfpwm_decode_dsp_pallas`` /
+``dfpwm_encode_pallas``): lane-major ``uint8[L, B]`` bytes and ``int8[L, 8B]``
+samples, so the two packages compare like with like. A tensor on the CPU
+goes to the plain version; a tensor on a CUDA device goes to the kernel, or
+the wrapper raises. Each
 wrapper counts its kernel launches in its ``launches`` attribute, and each
 plain version its calls in ``calls``, so a run can show which one served it.
 """
@@ -15,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..codecs.dfpwm import FIELDS, DfpwmState, decode_samples, norm8
+from ..codecs.dfpwm import FIELDS, DfpwmState, decode_samples, dfpwm_encode, norm8
 from . import _build
-from ._wrap import check_lane_vector, stream_of
+from ._wrap import check_lane_vector, check_rows, stream_of
 from .fma_cuda import fma_ref
 
 # -- plain versions ------------------------------------------------------------------
@@ -58,8 +60,17 @@ def dfpwm_decode_dsp_ref(bytes_u8: torch.Tensor, state: DfpwmState, alpha: float
     return out, state
 
 
+def dfpwm_encode_ref(levels_i8: torch.Tensor, state: DfpwmState):
+    """int8[L, N] levels (N a multiple of 8) -> (uint8[L, N/8], state): the
+    encode loop of ``codecs.dfpwm``, one Python step per sample with the
+    lanes vectorised. ``previous_charge`` and ``lowpass`` pass through."""
+    dfpwm_encode_ref.calls += 1
+    return dfpwm_encode(levels_i8, state)
+
+
 dfpwm_decode_ref.calls = 0
 dfpwm_decode_dsp_ref.calls = 0
+dfpwm_encode_ref.calls = 0
 
 # -- kernel wrappers -------------------------------------------------------------------
 
@@ -141,9 +152,43 @@ def dfpwm_decode_dsp_kernel(bytes_u8: torch.Tensor, state: DfpwmState, alpha: fl
     return out, DfpwmState(*st_out.unbind(0))
 
 
+def dfpwm_encode_kernel(levels_i8: torch.Tensor, state: DfpwmState):
+    """int8[L, N] levels (N a multiple of 8) -> (uint8[L, N/8] DFPWM bytes,
+    new state): bit = ``level > charge`` or ``level == charge == 127``, the
+    decoder's predictor, 8 bits packed LSB first. Only charge, strength and
+    previous bit take part; ``previous_charge`` and ``lowpass`` pass through
+    untouched, as in ``dfpwm_encode_pallas``. The CUDA kernel
+    ``aukit_dfpwm_encode`` replaces ``dfpwm_encode_grouped``
+    (aukit_tpu/kernels/dfpwm_pallas.py:348)."""
+    check_rows("levels", levels_i8, torch.int8)
+    lanes, nsamples = levels_i8.shape
+    if nsamples % 8:
+        raise ValueError(f"levels must hold a multiple of 8 samples per lane, got {nsamples}")
+    for name, leaf in zip(FIELDS, state.leaves()):
+        check_lane_vector(f"state.{name}", leaf, torch.int32, levels_i8)
+    if levels_i8.device.type == "cpu":
+        return dfpwm_encode_ref(levels_i8, state)
+    out = torch.empty((lanes, nsamples // 8), dtype=torch.uint8, device=levels_i8.device)
+    if out.numel() == 0:
+        return out, state
+    # the kernel reads each row as 4-byte words
+    if not levels_i8.is_contiguous() or levels_i8.data_ptr() % 4:
+        levels_i8 = levels_i8.clone(memory_format=torch.contiguous_format)
+    st_in = torch.stack(state.leaves()[:3])  # int32[3, L]
+    st_out = torch.empty_like(st_in)
+    with torch.cuda.device(levels_i8.device):
+        rc = _build.load().aukit_dfpwm_encode(
+            levels_i8.data_ptr(), st_in.data_ptr(), out.data_ptr(), st_out.data_ptr(),
+            lanes, nsamples // 8, stream_of(levels_i8))
+    _build.check(rc, "aukit_dfpwm_encode")
+    dfpwm_encode_kernel.launches += 1
+    return out, DfpwmState(*st_out.unbind(0), state.previous_charge, state.lowpass)
+
+
 dfpwm_decode_kernel.launches = 0
 dfpwm_decode_dsp_kernel.launches = 0
+dfpwm_encode_kernel.launches = 0
 
-KERNELS = (dfpwm_decode_kernel, dfpwm_decode_dsp_kernel)
-PLAIN = (dfpwm_decode_ref, dfpwm_decode_dsp_ref)
+KERNELS = (dfpwm_decode_kernel, dfpwm_decode_dsp_kernel, dfpwm_encode_kernel)
+PLAIN = (dfpwm_decode_ref, dfpwm_decode_dsp_ref, dfpwm_encode_ref)
 

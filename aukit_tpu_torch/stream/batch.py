@@ -1,5 +1,5 @@
 """Batched multi-stream decode engine — counterpart of
-``aukit_tpu.stream.batch`` for mono windows on one device.
+``aukit_tpu.stream.batch`` on one device.
 
 Many independent streams are packed into fixed lanes. Lanes with equal
 ``LaneSpec`` share a *group*: one decode dispatch and one resample plan per
@@ -21,11 +21,16 @@ read theirs from each block header.
  - heterogeneous engines assemble uniform one-second windows from per-group
    device FIFOs; homogeneous engines emit each decode chunk directly;
  - per-lane checkpoints in the JAX engine's numpy format, so a checkpoint of
-   either engine restores into the other.
+   either engine restores into the other;
+ - with ``mono=False`` windows keep the decoded channels: ``int8[L, C, T]``
+   per-channel chunks (the reference's chunk contract, aukit.lua:2223-2227),
+   C the fleet's largest channel count; lanes with fewer channels replicate
+   channel 0, the reference's speaker fallback ``chunk[i] or chunk[1]``
+   (aukit.lua:1935).
 
 Not ported yet (each raises ``NotImplementedError``): the per-lane DSP stages
-``set_filter``/``set_mono``/``normalize`` and ``mono=False`` (ROADMAP.md,
-queue 1: "Engine DSP stages", "Per-channel windows").
+``set_filter``/``set_mono``/``normalize`` (ROADMAP.md, queue 1: "Engine DSP
+stages").
 """
 
 from __future__ import annotations
@@ -88,7 +93,18 @@ def _dev_pop_skip(fifo: torch.Tensor, skip: torch.Tensor, take: int, count: int,
     need = smax + count
     fifo_p = F.pad(fifo, (0, need - fifo.shape[-1])) if fifo.shape[-1] < need else fifo
     idx = skip[:, None] + torch.arange(count, dtype=skip.dtype, device=skip.device)
+    if fifo.dim() == 3:
+        idx = idx[:, None, :].expand(-1, fifo.shape[1], -1)
     return torch.gather(fifo_p, -1, idx), fifo[..., take:]
+
+
+def _dev_padch(w: torch.Tensor, cmax: int) -> torch.Tensor:
+    """[L, C, T] -> [L, cmax, T]: missing channels replicate channel 0, the
+    batched form of the reference's speaker fallback ``chunk[i] or chunk[1]``
+    (aukit.lua:1935)."""
+    if w.shape[1] == cmax:
+        return w
+    return torch.cat([w, w[:, :1].expand(-1, cmax - w.shape[1], -1)], dim=1)
 
 
 def _dev_assemble(windows, inv: torch.Tensor) -> torch.Tensor:
@@ -302,6 +318,16 @@ class _GroupIO:
         return None
 
 
+def require_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device; raises when it names CUDA and no CUDA
+    device is present (no entry point carries on on the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device='cuda'): no CUDA device is available; "
+                           "pass device='cpu' for the plain PyTorch path")
+    return device
+
+
 def _to_device(x, device: torch.device) -> torch.Tensor:
     """A fresh contiguous copy of host (numpy) or device bytes on ``device``:
     nothing the caller mutates later can race an asynchronous copy."""
@@ -314,13 +340,17 @@ class _Group:
     """Lanes sharing one LaneSpec: device step + staging + output FIFO."""
 
     def __init__(self, spec: LaneSpec, slots: np.ndarray, device: torch.device,
-                 out_rate: int, mode: str = "linear"):
+                 out_rate: int, mono: bool = True, mode: str = "linear"):
         self.spec = spec
         self.slots = slots  # external lane ids, in engine order
         self.lanes = len(slots)
         self.device = device
+        self.mono = mono
         self.mode = mode  # resample interpolation (dsp_chain, all 4 modes)
-        self.decode = build_decoder(spec)
+        self.out_ch = 1 if mono else spec.channels
+        self.decode = build_decoder(spec, mono)
+        # in_samples counts per-channel frames, so out_samples holds for both
+        # the mono [L, T] and the per-channel [L, C, T] output contract
         self.in_bytes, self.in_samples = geometry(spec)
         self.out_rate = out_rate
         self.out_samples = self.in_samples * out_rate // spec.sample_rate
@@ -330,7 +360,8 @@ class _Group:
         self.fused = spec.codec == "dfpwm" and spec.sample_rate == out_rate
         self.alpha = fir_alpha(spec.sample_rate, out_rate)
         self.io = _GroupIO(self.lanes, self.in_bytes)
-        self.fir = torch.zeros(self.lanes, dtype=torch.float32, device=device)
+        self.fir = torch.zeros((self.lanes,) if mono else (self.lanes, self.out_ch),
+                               dtype=torch.float32, device=device)
         # per-lane volume: gain ramps linearly from gain0 to gain1 across each
         # lane's next chunk; gain0 == gain1 == 1 is the ungained stream
         self.gain0 = np.ones(self.lanes, np.float32)
@@ -349,18 +380,24 @@ class _Group:
         self.skip = np.zeros(self.lanes, np.int64)
 
     def _step(self, dev: torch.Tensor, ready: torch.Tensor, gain):
-        """One device step: (int8[L, out_samples], new fir, new state).
-        Masked lanes emit zeros and keep their fir and codec state."""
+        """One device step: (int8[L, out_samples] or, per channel,
+        int8[L, C, out_samples]; new fir; new state). Masked lanes emit zeros
+        and keep their fir and codec state."""
+        keep = ready if self.mono else ready[:, None]  # broadcasts over the fir's shape
         if self.fused:
             out, new_state = dfpwm_decode_dsp_kernel(dev, self.state, self.alpha,
                                                      mask=ready, gain=gain)
             new_fir = norm8(new_state.lowpass)
+            if not self.mono:  # per-channel contract: DFPWM lanes are C == 1
+                out, new_fir = out[:, None, :], new_fir[:, None]
         else:
-            f, new_state = self.decode(dev, self.state)
+            f, new_state = self.decode(dev, self.state)  # [L, T] or [L, C, T]
+            if gain is not None and not self.mono:
+                gain = (gain[0][:, None], gain[1][:, None])
             out, new_fir = dsp_chain(f, self.spec.sample_rate, self.out_rate,
                                      fir_state=self.fir, mode=self.mode, gain=gain)
-            out = torch.where(ready[:, None], out, 0)
-        return (out, torch.where(ready, new_fir, self.fir),
+            out = torch.where(keep[..., None], out, 0)
+        return (out, torch.where(keep, new_fir, self.fir),
                 new_state.where(ready, self.state))
 
     def decode_once(self):
@@ -394,14 +431,20 @@ class _Group:
         self.spans.append([self.fill, self.fill + out_dev.shape[-1], ready])
         self.fill += out_dev.shape[-1]
 
+    def silence(self, count: int) -> torch.Tensor:
+        """An all-zero window of ``count`` samples in the group's shape."""
+        shape = (self.lanes, count) if self.mono else (self.lanes, self.out_ch, count)
+        return torch.zeros(shape, dtype=torch.int8, device=self.device)
+
     def fifo_pop(self, count: int):
         """Pop ``count`` samples (zero-padded if short). Returns
-        (int8[L, count] device tensor, had_real bool[L] host). Lane l reads
-        its window at its own cursor [skip[l], skip[l]+count)."""
+        (int8[L, count] or int8[L, C, count] device tensor, had_real bool[L]
+        host). Lane l reads its window at its own cursor
+        [skip[l], skip[l]+count)."""
         take = min(count, self.fill)
         smax = int(self.skip.max())
         if take == 0:
-            window = torch.zeros((self.lanes, count), dtype=torch.int8, device=self.device)
+            window = self.silence(count)
         elif smax == 0:
             window, self.fifo = _dev_pop(self.fifo, take, count)
         else:
@@ -436,7 +479,10 @@ class BatchStreamEngine:
     specs : one LaneSpec per lane (lanes with equal specs share a group)
     device : torch device the decode runs on; "cuda" (the default) raises
         at construction when no CUDA device is present
-    mono : True only (mono windows ``int8[L, T]``)
+    mono : True (default) mixes every lane to mono windows ``int8[L, T]``;
+        False keeps the decoded channels: windows become ``int8[L, C, T]``
+        with C the fleet's largest channel count, and lanes with fewer
+        channels replicate channel 0
     windowed : None (default) emits uniform 1-second windows only for
         heterogeneous fleets (homogeneous engines emit raw decode chunks);
         True forces the windowed contract even for a single group
@@ -449,19 +495,11 @@ class BatchStreamEngine:
         specs = list(specs)
         if not specs:
             raise ValueError("need at least one lane")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BatchStreamEngine(device='cuda'): no CUDA device "
-                               "is available; pass device='cpu' for the plain "
-                               "PyTorch path")
-        if not mono:
-            raise NotImplementedError(
-                "mono=False is not ported to aukit_tpu_torch yet "
-                "(ROADMAP.md, queue 1: 'Per-channel windows')")
-        self.device = device
+        self.device = device = require_device(device, "BatchStreamEngine")
         self.lanes = len(specs)
         self.specs = specs
         self.mono = mono
+        self.out_channels = 1 if mono else max(s.channels for s in specs)
         by_spec: dict[LaneSpec, list[int]] = {}
         for i, s in enumerate(specs):
             by_spec.setdefault(s, []).append(i)
@@ -473,7 +511,7 @@ class BatchStreamEngine:
                     raise ValueError("chunk_bytes overrides require a homogeneous engine")
         self.interpolation = get_interpolation(interpolation)
         self.groups = [_Group(s, np.array(slots), device, CONFIG.output_rate,
-                              mode=self.interpolation)
+                              mono=mono, mode=self.interpolation)
                        for s, slots in by_spec.items()]
         self._lane_map: list[tuple[int, int]] = [None] * self.lanes  # lane -> (gi, slot)
         for gi, g in enumerate(self.groups):
@@ -557,7 +595,8 @@ class BatchStreamEngine:
         chunk start. ``chunk`` is an int8 tensor on the engine's device:
         [L, out_samples] straight from the dispatch for homogeneous engines,
         [L, output_rate] windows assembled from per-group FIFOs for
-        heterogeneous ones. Kernel launches are asynchronous, so staging the
+        heterogeneous ones; with ``mono=False`` a channel axis rides in
+        between ([L, C, ...]). Kernel launches are asynchronous, so staging the
         next chunk overlaps device compute."""
         if self.done:
             return None
@@ -610,8 +649,10 @@ class BatchStreamEngine:
             else:
                 # starved (not exhausted): hold the partial FIFO — popping it
                 # now would zero-pad silence into the lane's timeline
-                got = torch.zeros((g.lanes, out_rate), dtype=torch.int8, device=self.device)
+                got = g.silence(out_rate)
                 had_real = np.zeros(g.lanes, bool)
+            if not self.mono:
+                got = _dev_padch(got, self.out_channels)
             windows.append(got)
             mask[g.slots] = had_real
         if not mask.any():
@@ -636,12 +677,16 @@ class BatchStreamEngine:
             "pending": g.io.pending_bytes(slot),
             "eof": bool(g.io.eof[slot]),
             "codec_state": [np.int32(leaf[slot].item()) for leaf in g.state.leaves()],
-            "fir_state": float(g.fir[slot]),
+            # mono: a float; mono=False: an f32[C] row
+            "fir_state": float(g.fir[slot]) if self.mono else g.fir[slot].cpu().numpy().copy(),
             "volume": (float(g.gain0[slot]), float(g.gain1[slot])),
             # the per-lane DSP stages are not ported: always their defaults
             "dsp": {"kind": 0, "alpha": 0.0, "norm_gain": 1.0, "mono": False,
-                    "started": False, "y": 0.0, "x": 0.0},
+                    "started": False, "y": self._dsp_zero(g), "x": self._dsp_zero(g)},
         }
+
+    def _dsp_zero(self, g: _Group):
+        return 0.0 if self.mono else np.zeros(g.out_ch, np.float32)
 
     def restore(self, lane: int, ckpt: dict):
         """Restore one lane from a checkpoint of this engine or of the JAX
@@ -663,7 +708,7 @@ class BatchStreamEngine:
         cs = ckpt.get("codec_state")  # None/absent -> zero the lane's state
         for i, leaf in enumerate(g.state.leaves()):
             leaf[slot] = int(cs[i]) if cs is not None else 0
-        g.fir[slot] = float(ckpt.get("fir_state", 0.0))
+        g.fir[slot] = torch.tensor(np.asarray(ckpt.get("fir_state", 0.0), np.float32))
         g.gain0[slot], g.gain1[slot] = ckpt.get("volume", (1.0, 1.0))
 
     def reset_lane(self, lane: int):
@@ -676,8 +721,8 @@ class BatchStreamEngine:
 
     def lane_iterator(self, lane: int):
         """Generator of ``(chunk, position_seconds)`` for ONE lane (host numpy
-        chunks). Iterating advances the WHOLE engine; use one consumer thread
-        per engine. Live feeds keep iterating through starved steps until
+        chunks; [C, T] with ``mono=False``). Iterating advances the WHOLE
+        engine; use one consumer thread per engine. Live feeds keep iterating through starved steps until
         ``done``: a feed gap pauses the stream rather than ending it."""
         while True:
             r = self.step()

@@ -2,7 +2,9 @@
 counterpart of ``aukit_tpu.stream.batch_codecs``.
 
 Each codec gets one function ``uint8[L, in_bytes] -> float32[L, in_samples]``
-(mono, loader-normalised) made of torch ops on the bytes' device. Block
+(mono, loader-normalised; per-channel ``[L, C, in_samples]`` with
+``mono=False``, the batched form of the reference's per-channel chunk
+contract, aukit.lua:2223-2227) made of torch ops on the bytes' device. Block
 codecs (IMA/MS ADPCM in WAV block layout, aukit.lua:1511/1543; QOA frames,
 aukit.lua:1713) carry their state in-band, so a chunk of K blocks decodes as
 K extra kernel lanes with no codec state carried across steps; only DFPWM
@@ -14,9 +16,6 @@ kernel on a CUDA tensor, the plain loop on the CPU); the elementwise codecs
 Geometry: every group consumes a fixed byte count per step chosen so the
 decoded sample count is ~1 second of input (the reference's per-second stream
 batching, aukit.lua:2617-2619).
-
-Only mono windows are ported: per-channel ``[L, C, T]`` output (the JAX
-package's ``mono=False``) is ROADMAP.md queue 1, "Per-channel windows".
 """
 
 from __future__ import annotations
@@ -273,55 +272,60 @@ def _u32_words(b: torch.Tensor, big_endian: bool) -> torch.Tensor:
     return w.to(torch.int32)
 
 
-def _frames(spec: LaneSpec, f: torch.Tensor) -> torch.Tensor:
-    """Interleaved samples [L, C*T] -> mono [L, T] (mean mixdown)."""
-    return _mono(f.reshape(f.shape[0], -1, spec.channels).transpose(-1, -2))
+def _frames(spec: LaneSpec, f: torch.Tensor, mono: bool) -> torch.Tensor:
+    """Interleaved samples [L, C*T] -> mono [L, T] (mean mixdown) or, with
+    ``mono=False``, per-channel [L, C, T]."""
+    x = f.reshape(f.shape[0], -1, spec.channels).transpose(-1, -2)
+    return _mono(x) if mono else x
 
 
-# -- per-codec decoders: uint8[L, in_bytes] -> float32[L, in_samples] mono ---------------
+# -- per-codec decoders: uint8[L, in_bytes] -> float32 mono [L, in_samples] or
+# per-channel [L, C, in_samples] ---------------------------------------------------------
 
-def _decode_pcm8(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_pcm8(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     v = b.to(torch.int32)
-    return _frames(spec, norm8(torch.where(v >= 128, v - 256, v)))
+    return _frames(spec, norm8(torch.where(v >= 128, v - 256, v)), mono)
 
 
-def _decode_pcm8u(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_pcm8u(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     """Unsigned 8-bit (WAV): bias 128 then asymmetric normalise (Q1 path,
     aukit.lua:1088/1152)."""
-    return _frames(spec, norm8(b.to(torch.int32) - 128))
+    return _frames(spec, norm8(b.to(torch.int32) - 128), mono)
 
 
-def _decode_pcm16(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_pcm16(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     if spec.codec == "pcm16be":
         v = _be16(b[:, 0::2], b[:, 1::2])
     else:
         v = _le16(b[:, 0::2], b[:, 1::2])
-    return _frames(spec, _norm16(v))
+    return _frames(spec, _norm16(v), mono)
 
 
-def _decode_pcm24(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_pcm24(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     x = b.to(torch.int32)
     if spec.codec.endswith("be"):
         v = (x[:, 0::3] << 16) | (x[:, 1::3] << 8) | x[:, 2::3]
     else:
         v = (x[:, 2::3] << 16) | (x[:, 1::3] << 8) | x[:, 0::3]
     v = torch.where(v >= 1 << 23, v - (1 << 24), v)
-    return _frames(spec, v.to(torch.float32) / torch.where(v < 0, 8388608.0, 8388607.0))
+    return _frames(spec, v.to(torch.float32) / torch.where(v < 0, 8388608.0, 8388607.0), mono)
 
 
-def _decode_pcm32(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_pcm32(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     v = _u32_words(b, spec.codec.endswith("be"))
-    return _frames(spec, v.to(torch.float32) / torch.where(v < 0, 2147483648.0, 2147483647.0))
+    return _frames(spec, v.to(torch.float32) / torch.where(v < 0, 2147483648.0, 2147483647.0),
+                   mono)
 
 
-def _decode_f32(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_f32(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     """Raw IEEE f32 samples, used directly like the reference's float loader
     (aukit.lua:1102: no normalisation)."""
-    return _frames(spec, _u32_words(b, spec.codec.endswith("be")).view(torch.float32))
+    return _frames(spec, _u32_words(b, spec.codec.endswith("be")).view(torch.float32), mono)
 
 
-def _decode_g711(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
-    return _mono(decode_g711_device(b, spec.codec == "ulaw", spec.channels, 0x2000))
+def _decode_g711(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
+    f = decode_g711_device(b, spec.codec == "ulaw", spec.channels, 0x2000)
+    return _mono(f) if mono else f
 
 
 def _ima_args(spec: LaneSpec, b: torch.Tensor):
@@ -423,30 +427,33 @@ BLOCK_KERNELS = {
 }
 
 
-def _block_mono(spec: LaneSpec, out: torch.Tensor, lanes: int) -> torch.Tensor:
+def _block_frames(spec: LaneSpec, out: torch.Tensor, lanes: int, mono: bool) -> torch.Tensor:
     """Block-lane samples int[L*K*C, T] (rows ordered lane, block, channel)
-    -> normalised mono float32[L, K*T]."""
+    -> normalised float32: mono [L, K*T], or per-channel [L, C, K*T]."""
     if spec.channels == 1:
-        return _norm16(out.reshape(lanes, -1))
+        flat = _norm16(out.reshape(lanes, -1))
+        return flat if mono else flat[:, None, :]
     f = _norm16(out).reshape(lanes, -1, 2, out.shape[1])
-    return _mono(f).reshape(lanes, -1)
+    if mono:
+        return _mono(f).reshape(lanes, -1)
+    return f.movedim(2, 1).reshape(lanes, 2, -1)
 
 
-def _decode_ima(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_ima(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     out, _ = ima_decode_kernel(*_ima_args(spec, b))
-    return _block_mono(spec, out, b.shape[0])
+    return _block_frames(spec, out, b.shape[0], mono)
 
 
-def _decode_msadpcm(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_msadpcm(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     """The two header samples (s2 then s1) are emitted before the
     predictions."""
     nib, s1, s2, delta, c1, c2 = _msadpcm_args(spec, b)
     preds, _ = msadpcm_decode_kernel(nib, s1, s2, delta, c1, c2)
     full = torch.cat([s2[:, None].to(torch.int16), s1[:, None].to(torch.int16), preds], dim=1)
-    return _block_mono(spec, full, b.shape[0])
+    return _block_frames(spec, full, b.shape[0], mono)
 
 
-def _decode_qoa(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
+def _decode_qoa(spec: LaneSpec, b: torch.Tensor, mono: bool) -> torch.Tensor:
     """Samples beyond a frame header's sample count (a short trailing
     frame) are masked; mono is the mean of the int samples, then the
     asymmetric normalise."""
@@ -457,7 +464,9 @@ def _decode_qoa(spec: LaneSpec, b: torch.Tensor) -> torch.Tensor:
     samples = (blk[..., 4].to(torch.int32) << 8) | blk[..., 5].to(torch.int32)
     t = torch.arange(QOA_SAMPLES_PER_FRAME, dtype=torch.int32, device=b.device)
     recon = torch.where(t < samples[..., None, None], recon, 0)
-    return _norm16(_mono(recon)).reshape(L, -1)
+    if mono:
+        return _norm16(_mono(recon)).reshape(L, -1)
+    return _norm16(recon.movedim(2, 1)).reshape(L, spec.channels, -1)
 
 
 _DECODERS = {
@@ -471,20 +480,22 @@ _DECODERS = {
 }
 
 
-def build_decoder(spec: LaneSpec):
-    """fn(bytes_u8, state) -> (f32[L, in_samples] mono samples, state). DFPWM
-    decodes through ``dfpwm_decode_kernel`` and threads its state; every
-    other codec reads its state in-band and passes ``state`` through."""
+def build_decoder(spec: LaneSpec, mono: bool = True):
+    """fn(bytes_u8, state) -> (f32 samples, state): mono [L, in_samples], or
+    per-channel [L, C, in_samples] with ``mono=False``. DFPWM decodes through
+    ``dfpwm_decode_kernel`` and threads its state; every other codec reads
+    its state in-band and passes ``state`` through."""
     if spec.codec == "dfpwm":
         def fn(b: torch.Tensor, state: DfpwmState):
             decoded, new_state = dfpwm_decode_kernel(b, state)
-            return norm8(decoded), new_state
+            f = norm8(decoded)
+            return (f if mono else f[:, None, :]), new_state
 
         return fn
     dec = _DECODERS[spec.codec]
 
     def fn(b: torch.Tensor, state: NoState):
-        return dec(spec, b), state
+        return dec(spec, b, mono), state
 
     return fn
 

@@ -206,7 +206,7 @@ class FlacFleet:
     device_restore : the batched LPC restore on ``device`` through kernel (g)
         (True), on the host (False), or the default (None): the host on the
         host and staged routes, the device on the device-resident route.
-    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1 item 9).
+    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1, "Multi-GPU").
     device_dsp : run the DSP (and, unless ``device_restore=False``, the
         restore) on ``device``; see the module docstring for the routes.
     mono : True mixes windows to one channel; False keeps ``channels``.
@@ -228,7 +228,7 @@ class FlacFleet:
         if mesh is not None:
             raise NotImplementedError(
                 "FlacFleet(mesh=...) is not ported to aukit_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 9: multi-GPU)")
+                "(ROADMAP.md queue 1, 'Multi-GPU')")
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")

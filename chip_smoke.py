@@ -7,12 +7,14 @@ Run from the repository root on a machine with the card and the CUDA toolkit:
 It builds the CUDA kernels from aukit_tpu_torch/csrc and the native FLAC
 parser, checks the kernels against golden vectors and against their plain
 PyTorch versions on the card (also at the main paths' own shapes and bytes),
-checks the CUDA engines against the CPU engines, drives the three main paths
+checks the CUDA engines against the CPU engines, drives the four main paths
 at full width (the batched DFPWM -> 48 kHz int8 engine, a 32768-lane
-block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, and a
-2048-lane drip-fed FLAC fleet), and times the kernels. Each phase prints one
-line; any failure raises, so the exit code is non-zero and the closing
-result line is not printed. It exits non-zero at once without a CUDA device.
+block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, a 2048-lane
+drip-fed FLAC fleet, and a 24576-lane device-to-device transcode of mono and
+stereo PCM16 into DFPWM and PCM16), and times the kernels, each beside its
+bound on the card. Each phase prints one line; any failure raises, so the
+exit code is non-zero and the closing result line is not printed. It exits
+non-zero at once without a CUDA device.
 Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
 struct only).
 """
@@ -29,9 +31,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, FlacFleet, LaneSpec, kernels
+from aukit_tpu_torch import (BatchDfpwmDecoder, BatchEncodeEngine, BatchStreamEngine, EncodeSpec,
+                             FlacFleet, LaneSpec, kernels, transcode_fleet)
 from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
-from aukit_tpu_torch.codecs.dfpwm import DfpwmState, dfpwm_encode
+from aukit_tpu_torch.codecs.dfpwm import DfpwmState
+from aukit_tpu_torch.containers.wav import pcm_wav_header
 from aukit_tpu_torch.kernels import _build
 from aukit_tpu_torch.kernels import adpcm_cuda as ka
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc
@@ -43,10 +47,57 @@ from aukit_tpu_torch.native import flacbits
 from aukit_tpu_torch.parallel.pipeline import fir_alpha
 from aukit_tpu_torch.stream import batch_codecs as bc
 from aukit_tpu_torch.stream import flac_fleet as ff
+from aukit_tpu_torch.stream.batch_encode import ENCODE_CODECS
 
 ROOT = Path(__file__).resolve().parent
 FULL_LANES = 32768  # bench.py's headline fleet: 8 groups of 4096 streams
 ALPHA_48K = fir_alpha(48000, 48000)
+
+# The card's published peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
+# device memory, 67 TFLOP/s float32 outside the tensor cores. That float32
+# rate counts a fused multiply-add as two, so it is 33.5e12 operations a
+# second, which is taken here as the peak for int32 and float32 operations
+# alike (the data sheet gives no int32 rate; the true one is no higher).
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 33.5e12
+# Arithmetic operations per sample of each kernel, counted from its source
+# (compares, selects, adds, shifts, multiplies; loads and stores not counted).
+# DFPWM: the shared predictor is 17 (target select, subtract, multiply, add,
+# shift, add, two compares and an and for the stall nudge, select, add, the
+# strength's compare, two selects, compare, add, max); the decoder adds the
+# antijerk (4), the lowpass (5) and the byte pack (2); its fused epilogue adds
+# 9 float operations; the encoder adds the bit decision (5) and the pack (2).
+# IMA: step lookup, 3 conditional adds of the shifted step (6), sign (2),
+# add, clamp (2), index add, lookup, clamp (2). MS ADPCM: 2 multiplies, add,
+# shift, multiply, add, clamp (2), adaption lookup, multiply, shift, clamp
+# (2). QOA: the 4-tap prediction (7), shift, add, clamp (2), the weight
+# update (9), the history shift (3). LPC restore: a 64-bit multiply-add per
+# tap (2 each), shift, add, store select. One-pole lowpass: a multiply and a
+# fused multiply-add. FMA: one.
+OPS_PER_SAMPLE = {"dfpwm_decode": 28, "dfpwm_decode_dsp": 37, "dfpwm_encode": 24, "ima": 16,
+                  "msadpcm": 13, "qoa": 23, "iir_zero": 2, "fma": 1}
+
+
+def lpc_ops_per_sample(order: int) -> int:
+    return 2 * order + 3
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes the
+    function must move over the memory rate and its operations over the
+    peak rate; and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timing(name: str, ms: float, plain_ms: float, ops: float, nbytes: float,
+           library_ms: float | None = None) -> dict:
+    """One kernel's row of numbers for the closing ``kernels`` line."""
+    b, by = bound_ms(ops, nbytes)
+    say("bound", kernel=name, ms=round(ms, 4), bound_ms=round(b, 4), bound_by=by,
+        share_of_bound=round(b / ms, 4), library_ms=library_ms)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def check(ok: bool, what: str) -> None:
@@ -112,15 +163,16 @@ def same(a, b) -> tuple[bool, int]:
 
 def encoded_tones(lanes: int, seconds: float, seed: int):
     """Realistic DFPWM streams: one tone per lane (110-2000 Hz, 48 kHz),
-    encoded on the card by the plain encoder. -> (bytes u8[L, B], levels)."""
+    encoded on the card by the plain encoder (kernel (c)'s plain version,
+    timed). -> (bytes u8[L, B], levels i8[L, 8B], plain milliseconds)."""
     rng = np.random.default_rng(seed)
     n = int(seconds * 48000) // 8 * 8
     t = torch.arange(n, device="cuda", dtype=torch.float64) / 48000
     freq = torch.tensor(rng.uniform(110, 2000, lanes), device="cuda")[:, None]
     amp = torch.tensor(rng.uniform(0.3, 0.9, lanes), device="cuda")[:, None]
-    levels = torch.trunc(amp * 127 * torch.sin(2 * np.pi * freq * t)).to(torch.int32)
-    enc, _ = dfpwm_encode(levels, DfpwmState.zeros(lanes, "cuda"))
-    return enc, levels
+    levels = torch.trunc(amp * 127 * torch.sin(2 * np.pi * freq * t)).to(torch.int8)
+    (enc, _), plain_ms = timed(lambda: kc.dfpwm_encode_ref(levels, DfpwmState.zeros(lanes, "cuda")))
+    return enc, levels, plain_ms
 
 
 def tone_correlation(decoded: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
@@ -237,30 +289,35 @@ def phase_kernel_vs_plain() -> dict:
     return errs
 
 
-def phase_kernel_vs_plain_main_shapes(tones: torch.Tensor) -> dict:
+def phase_kernel_vs_plain_main_shapes(tones: torch.Tensor) -> tuple[dict, dict]:
     """Each kernel against its plain version at the shapes the main path
     gives it, on the bytes the main path decodes, every lane compared: the
     fused kernel on a one-second identity-rate chunk (32768 lanes x 6000
     bytes) with a lane mask and a gain ramp, and the decode kernel on a
     one-second chunk of the mixed fleet's 32 kHz half (16384 lanes x 4000
-    bytes). Both start from a non-zero state. Returns max |error| by kernel."""
+    bytes). Both start from a non-zero state. Then each kernel's time as the
+    main path calls it (the fused kernel with every lane live and no gain),
+    by CUDA events. Returns (max |error|, timing row) by kernel."""
     rng = np.random.default_rng(7)
     lanes = FULL_LANES
     state = random_state(rng, lanes)
     mask = torch.tensor(rng.random(lanes) < 0.8, device="cuda")
     gain = (torch.tensor(rng.uniform(0.2, 1.8, lanes).astype(np.float32), device="cuda"),
             torch.tensor((rng.uniform(-1, 1, lanes) / 48000).astype(np.float32), device="cuda"))
+    live = torch.ones(lanes, dtype=torch.bool, device="cuda")
     cases = {
         "dfpwm_decode_dsp": (
             lambda: kc.dfpwm_decode_dsp_kernel(tones, state, ALPHA_48K, mask, gain),
-            lambda: kc.dfpwm_decode_dsp_ref(tones, state, ALPHA_48K, mask, gain)),
+            lambda: kc.dfpwm_decode_dsp_ref(tones, state, ALPHA_48K, mask, gain),
+            lambda: kc.dfpwm_decode_dsp_kernel(tones, state, ALPHA_48K, live)),
     }
     half = tones[1::2, :4000].contiguous()
     half_state = DfpwmState(*(leaf[1::2].contiguous() for leaf in state.leaves()))
     cases["dfpwm_decode"] = (lambda: kc.dfpwm_decode_kernel(half, half_state),
-                             lambda: kc.dfpwm_decode_ref(half, half_state))
-    errs = {}
-    for name, (kernel, plain) in cases.items():
+                             lambda: kc.dfpwm_decode_ref(half, half_state),
+                             lambda: kc.dfpwm_decode_kernel(half, half_state))
+    errs, times = {}, {}
+    for name, (kernel, plain, as_main_path) in cases.items():
         (out, st), ms = timed(kernel)
         (ref, ref_st), plain_ms = timed(plain)
         (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(st, ref_st)
@@ -269,9 +326,13 @@ def phase_kernel_vs_plain_main_shapes(tones: torch.Tensor) -> dict:
             bytes=out.shape[1] // 8, out_equal=ok_o, state_equal=ok_s,
             ms=round(ms, 4), plain_ms=round(plain_ms, 2))
         check(ok_o and ok_s, f"{name} kernel == plain at the main path's shape")
+        samples = out.numel()
         del out, ref, st, ref_st
         torch.cuda.empty_cache()
-    return errs
+        # a byte in, eight int8 samples out
+        times[name] = timing(name, event_ms(as_main_path, 5), plain_ms,
+                             samples * OPS_PER_SAMPLE[name], samples * 9 / 8)
+    return errs, times
 
 
 def drive(eng, feeds, volumes=()):
@@ -477,9 +538,11 @@ def phase_step_breakdown(tones: torch.Tensor) -> None:
         busy_with_copies=round(busy_ms(kernels + copies) / wall, 4))
 
 
-def phase_times() -> dict:
+def phase_times() -> None:
     """Kernel (a) at bench.py's headline shape, and both kernels against their
-    plain versions at 32768 x 512 bytes (CUDA events)."""
+    plain versions at 32768 x 512 bytes (CUDA events; the series kept since
+    the first slice: the closing ``kernels`` line takes its (a) and (b) rows
+    at the main path's shapes, from phase_kernel_vs_plain_main_shapes)."""
     lanes, nbytes = FULL_LANES, 24576
     data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
     st = [DfpwmState.zeros(lanes, "cuda")]
@@ -492,6 +555,9 @@ def phase_times() -> dict:
     say("time", kernel="dfpwm_decode", lanes=lanes, bytes=nbytes, ms=round(ms, 4),
         gsamples_per_s=round(lanes * nbytes * 8 / ms / 1e6, 2),
         realtime_factor=round(lanes * nbytes * 8 / (ms / 1e3) / 48000, 1))
+    b, by = bound_ms(lanes * nbytes * 8 * OPS_PER_SAMPLE["dfpwm_decode"], lanes * nbytes * 9)
+    say("bound", kernel="dfpwm_decode", lanes=lanes, bytes=nbytes, ms=round(ms, 4),
+        bound_ms=round(b, 4), bound_by=by, share_of_bound=round(b / ms, 4))
     del data, st
     torch.cuda.empty_cache()
 
@@ -506,15 +572,12 @@ def phase_times() -> dict:
         "dfpwm_decode_dsp": (lambda: kc.dfpwm_decode_dsp_kernel(data, state, ALPHA_48K, mask),
                              lambda: kc.dfpwm_decode_dsp_ref(data, state, ALPHA_48K, mask)),
     }
-    times = {}
     for name, (kernel, plain) in calls.items():
         kernel()
         k1, p1 = event_ms(kernel, 20), event_ms(plain, 1)
         k2, p2 = event_ms(kernel, 20), event_ms(plain, 1)  # kernel, plain, kernel, plain
-        times[name] = (min(k1, k2), min(p1, p2))
-        say("time", kernel=name, lanes=lanes, bytes=nbytes, ms=round(times[name][0], 4),
-            plain_ms=round(times[name][1], 2))
-    return times
+        say("time", kernel=name, lanes=lanes, bytes=nbytes, ms=round(min(k1, k2), 4),
+            plain_ms=round(min(p1, p2), 2))
 
 
 # -- the block-codec lanes ---------------------------------------------------------------
@@ -908,21 +971,28 @@ def phase_block_times() -> dict:
         kernel()
         k1, p1 = event_ms(kernel, 10), event_ms(plain, 1)
         k2, p2 = event_ms(kernel, 10), event_ms(plain, 1)
-        times[name] = (min(k1, k2), min(p1, p2))
-        say("time", kernel=name, lanes=lanes, samples=T, ms=round(times[name][0], 4),
-            plain_ms=round(times[name][1], 2),
-            gsamples_per_s=round(lanes * T / times[name][0] / 1e6, 2))
+        say("time", kernel=name, lanes=lanes, samples=T, ms=round(min(k1, k2), 4),
+            plain_ms=round(min(p1, p2), 2),
+            gsamples_per_s=round(lanes * T / min(k1, k2) / 1e6, 2))
+        # the input's bytes in, int16 samples out (the per-lane state is noise)
+        times[name] = timing(name, min(k1, k2), min(p1, p2), lanes * T * OPS_PER_SAMPLE[name],
+                             lanes * T * (x.element_size() + 2))
         del x
     rows, cols = BLOCK_LANES[0], ima_resample_width()
     x = torch.rand((rows, cols), device="cuda") * 2 - 1
     frac = torch.rand(cols, device="cuda")
-    k1, p1 = event_ms(lambda: kf.fma_kernel(x, frac, x), 10), event_ms(lambda: kf.fma_ref(x, frac, x), 1)
-    k2, p2 = event_ms(lambda: kf.fma_kernel(x, frac, x), 10), event_ms(lambda: kf.fma_ref(x, frac, x), 1)
-    times["fma"] = (min(k1, k2), min(p1, p2))
+    z = x.flip(1).contiguous()
+    k1, p1 = event_ms(lambda: kf.fma_kernel(x, frac, z), 10), event_ms(lambda: kf.fma_ref(x, frac, z), 1)
+    k2, p2 = event_ms(lambda: kf.fma_kernel(x, frac, z), 10), event_ms(lambda: kf.fma_ref(x, frac, z), 1)
+    # the one PyTorch call that computes z + x * y (it may round twice, so
+    # the port does not use it)
+    lib = event_ms(lambda: torch.addcmul(z, x, frac), 10)
     # bytes moved: two [rows, cols] float32 reads and one write (frac is a row)
-    say("time", kernel="fma", lanes=rows, samples=cols, ms=round(times["fma"][0], 4),
-        plain_ms=round(times["fma"][1], 2),
-        gbytes_per_s=round(rows * cols * 12 / times["fma"][0] / 1e6, 1))
+    say("time", kernel="fma", lanes=rows, samples=cols, ms=round(min(k1, k2), 4),
+        plain_ms=round(min(p1, p2), 2), addcmul_ms=round(lib, 4),
+        gbytes_per_s=round(rows * cols * 12 / min(k1, k2) / 1e6, 1))
+    times["fma"] = timing("fma", min(k1, k2), min(p1, p2), rows * cols * OPS_PER_SAMPLE["fma"],
+                          rows * cols * 12, library_ms=lib)
     return times
 
 # -- the FLAC fleet ---------------------------------------------------------------------------
@@ -1372,13 +1442,379 @@ def phase_flac_times() -> dict:
         kernel(*args)
         k1, p1 = event_ms(lambda: kernel(*args), 10), event_ms(lambda: plain(*args), 1)
         k2, p2 = event_ms(lambda: kernel(*args), 10), event_ms(lambda: plain(*args), 1)
-        times[name] = (min(k1, k2), min(p1, p2))
-        say("time", kernel=name, rows=LPC_ROWS, samples=FLAC_N, ms=round(times[name][0], 4),
-            plain_ms=round(times[name][1], 2),
-            gsamples_per_s=round(LPC_ROWS * FLAC_N / times[name][0] / 1e6, 2))
+        say("time", kernel=name, rows=LPC_ROWS, samples=FLAC_N, ms=round(min(k1, k2), 4),
+            plain_ms=round(min(p1, p2), 2),
+            gsamples_per_s=round(LPC_ROWS * FLAC_N / min(k1, k2) / 1e6, 2))
+        # 4-byte samples in and out; every row of this input is order 8
+        ops = lpc_ops_per_sample(8) if name == "lpc_restore" else OPS_PER_SAMPLE[name]
+        times[name] = timing(name, min(k1, k2), min(p1, p2), LPC_ROWS * FLAC_N * ops,
+                             LPC_ROWS * FLAC_N * 8)
         del args
         torch.cuda.empty_cache()
     return times
+
+
+# -- the write path: kernel (c) and the transcode ---------------------------------------------
+
+TRANSCODE_MONO = 16384  # 48 kHz mono PCM16 lanes (bench.py:670-688's stream at fleet width)
+TRANSCODE_STEREO = 8192  # 44.1 kHz stereo PCM16 lanes
+TRANSCODE_SECONDS = 3
+TRANSCODE_CHECK = 4  # lanes of each kind that the CPU engines transcode too
+ENCODE_CHECK_LANES = 512  # lanes of the 48000-sample kernel-vs-plain case from a random state
+
+
+def rail_levels(rng, lanes: int, n: int) -> torch.Tensor:
+    """Random int8 levels with rows pinned at 127 and -128: the charge
+    reaches both rails, where ``level == charge == 127`` decides bits."""
+    levels = rng.integers(-128, 128, (lanes, n)).astype(np.int8)
+    levels[::7] = 127
+    levels[3::7] = -128
+    return torch.tensor(levels, device="cuda")
+
+
+def phase_encode_kernel_vs_plain(tones: torch.Tensor, levels: torch.Tensor) -> int:
+    """Kernel (c) against its plain version on the same CUDA tensors, bytes
+    and state, max |error| 0: small ragged shapes from a random state with
+    rows at the rails, two chained calls; every lane at 4096 samples and
+    ENCODE_CHECK_LANES lanes at 48000 samples from a random state; and every
+    lane at the main path's own shape (32768 x 48000 levels from a zero
+    state) against the bytes the plain encoder made of the same levels. Then
+    the round trip on the card: kernel (a) decodes kernel (c)'s bytes and
+    the audio follows its source tone. Returns max |error|."""
+    rng = np.random.default_rng(17)
+    worst = 0
+    for lanes, n in ((1, 8), (65, 264), (300, 776)):
+        st = ref_st = random_state(rng, lanes)
+        for call in range(2):
+            x = rail_levels(rng, lanes, n)
+            out, st = kc.dfpwm_encode_kernel(x, st)
+            ref, ref_st = kc.dfpwm_encode_ref(x, ref_st)
+            (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(st, ref_st)
+            worst = max(worst, e_o, e_s)
+            check(ok_o and ok_s, f"dfpwm_encode kernel == plain at {lanes} x {n}, call {call}")
+    say("kernel_vs_plain", kernel="dfpwm_encode", shapes="[[1,8],[65,264],[300,776]]",
+        calls=2, out_equal=True, state_equal=True)
+    for lanes, n in ((FULL_LANES, 4096), (ENCODE_CHECK_LANES, 48000)):
+        x = levels[:lanes, :n].contiguous()
+        st0 = random_state(rng, lanes)
+        (out, st), ms = timed(lambda: kc.dfpwm_encode_kernel(x, st0))
+        (ref, ref_st), plain_ms = timed(lambda: kc.dfpwm_encode_ref(x, st0))
+        (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(st, ref_st)
+        worst = max(worst, e_o, e_s)
+        say("kernel_vs_plain", kernel="dfpwm_encode", lanes=lanes, samples=n, out_equal=ok_o,
+            state_equal=ok_s, ms=round(ms, 4), plain_ms=round(plain_ms, 2))
+        check(ok_o and ok_s, f"dfpwm_encode kernel == plain at {lanes} x {n}")
+    (out, st), ms = timed(lambda: kc.dfpwm_encode_kernel(levels, DfpwmState.zeros(FULL_LANES, "cuda")))
+    ok, err = same(out, tones)
+    worst = max(worst, err)
+    say("kernel_vs_plain_main_shape", kernel="dfpwm_encode", lanes=FULL_LANES,
+        samples=levels.shape[1], out_equal=ok, ms=round(ms, 4))
+    check(ok, "dfpwm_encode kernel == plain at the main path's shape, every lane")
+    corr = []
+    for i in range(0, FULL_LANES, 4096):
+        rows = out[i: i + 4096].contiguous()
+        dec, _ = kc.dfpwm_decode_kernel(rows, DfpwmState.zeros(len(rows), "cuda"))
+        corr.append(tone_correlation(dec, levels[i: i + 4096]))
+    corr = torch.cat(corr)
+    say("encode_round_trip", lanes=FULL_LANES, samples=levels.shape[1],
+        corr_min=round(float(corr.min()), 4), corr_median=round(float(corr.median()), 4))
+    check(bool(torch.isfinite(corr).all()) and float(corr.min()) > 0.8,
+          "kernel (a) on kernel (c)'s bytes follows the source tone")
+    return worst
+
+
+def pcm16_tone_rows(rng, lanes: int, frames: int, rate: int, channels: int):
+    """uint8[lanes, frames * channels * 2] host rows of interleaved
+    little-endian PCM16: one tone a lane (110-1000 Hz, 30-90% of full scale),
+    the second channel the same tone at 0.8 of the level, 0.5 rad ahead.
+    Made on the card a block of lanes at a time. -> (rows, freq, amp)."""
+    rows = np.empty((lanes, frames * channels * 2), np.uint8)
+    freq = torch.tensor(rng.uniform(110, 1000, lanes), device="cuda")[:, None]
+    amp = torch.tensor(rng.uniform(0.3, 0.9, lanes) * 32767, device="cuda")[:, None]
+    t = torch.arange(frames, device="cuda", dtype=torch.float64) / rate
+    for i in range(0, lanes, 1024):
+        phase = 2 * np.pi * freq[i: i + 1024] * t
+        chans = [amp[i: i + 1024] * torch.sin(phase)]
+        if channels == 2:
+            chans.append(0.8 * amp[i: i + 1024] * torch.sin(phase + 0.5))
+        x = torch.trunc(torch.stack(chans, dim=-1)).to(torch.int16)  # [l, frames, C]
+        rows[i: i + 1024] = x.reshape(x.shape[0], -1).cpu().numpy().view(np.uint8)
+    return rows, freq, amp
+
+
+def transcode_engines(device: str, mono_lanes: int, stereo_lanes: int):
+    """The transcode's five engines: a mono and a per-channel windowed
+    decode engine, and the encoders they feed (mono DFPWM; interleaved
+    stereo DFPWM and stereo pcm16 from the same windows)."""
+    return (BatchStreamEngine([LaneSpec("pcm16", 48000)] * mono_lanes, device=device,
+                              windowed=True),
+            BatchStreamEngine([LaneSpec("pcm16", 44100, 2)] * stereo_lanes, device=device,
+                              mono=False, windowed=True),
+            BatchEncodeEngine([EncodeSpec("dfpwm")] * mono_lanes, device=device),
+            BatchEncodeEngine([EncodeSpec("dfpwm", 2)] * stereo_lanes, device=device),
+            BatchEncodeEngine([EncodeSpec("pcm16", 2)] * stereo_lanes, device=device))
+
+
+def transcode_step(engines):
+    """One window of every lane through the five engines -> the three
+    encoders' results, or None when the decoders are done."""
+    dec_m, dec_s, enc_m, enc_s, enc_p = engines
+    if dec_m.done and dec_s.done:
+        return None
+    wm, mask_m, _ = dec_m.step()
+    ws, mask_s, _ = dec_s.step()
+    return (enc_m.encode_windows(wm, mask_m), enc_s.encode_windows(ws, mask_s),
+            enc_p.encode_windows(ws, mask_s))
+
+
+def run_transcode(device: str, mono_rows, stereo_rows, pick_m, pick_s):
+    """Bulk-feed and run the transcode on ``device``. -> (every step's
+    (bytes, nbytes, mask, positions) of the picked lanes of each encoder,
+    the first step's full DFPWM outputs, the engines)."""
+    engines = transcode_engines(device, len(mono_rows), len(stereo_rows))
+    engines[0].feed_array(mono_rows)
+    engines[1].feed_array(stereo_rows)
+    picks = (pick_m, pick_s, pick_s)
+    picks_dev = [torch.tensor(p, device=device) for p in picks]
+    steps, first = [], None
+    while (r := transcode_step(engines)) is not None:
+        if first is None:
+            first = (r[0][0], r[1][0])
+        steps.append([(out[pd].cpu().numpy(), nbytes[p], mask[p], pos[p])
+                      for (out, nbytes, mask, pos), p, pd in zip(r, picks, picks_dev)])
+    return steps, first, engines
+
+
+def phase_transcode() -> dict:
+    """The write path at full width, through the engines' entry points:
+    16384 mono PCM16 lanes at 48 kHz and 8192 stereo PCM16 lanes at 44.1 kHz,
+    TRANSCODE_SECONDS each, bulk-fed from host memory, decoded to one-second
+    windows (``mono=True`` and ``mono=False``) and encoded device-to-device
+    into mono DFPWM, interleaved stereo DFPWM and stereo pcm16. Launch counts
+    are zeroed just before and read just after. Then: TRANSCODE_CHECK lanes
+    of each kind against the same engines on the CPU, bit for bit; the
+    first window's DFPWM bytes decoded by kernel (a) against the source
+    tones; the pcm16 bytes' layout. Returns the launch counts."""
+    rng = np.random.default_rng(18)
+    t0 = time.perf_counter()
+    mono_rows, freq_m, amp_m = pcm16_tone_rows(rng, TRANSCODE_MONO, TRANSCODE_SECONDS * 48000,
+                                               48000, 1)
+    stereo_rows, freq_s, amp_s = pcm16_tone_rows(rng, TRANSCODE_STEREO, TRANSCODE_SECONDS * 44100,
+                                                 44100, 2)
+    say("transcode_bytes", mono_lanes=TRANSCODE_MONO, stereo_lanes=TRANSCODE_STEREO,
+        seconds_per_lane=TRANSCODE_SECONDS, bytes=mono_rows.nbytes + stereo_rows.nbytes,
+        build_seconds=round(time.perf_counter() - t0, 3))
+    pick_m = np.linspace(0, TRANSCODE_MONO - 1, TRANSCODE_CHECK).astype(np.int64)
+    pick_s = np.linspace(0, TRANSCODE_STEREO - 1, TRANSCODE_CHECK).astype(np.int64)
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    t0 = sync_time()
+    steps, first, engines = run_transcode("cuda", mono_rows, stereo_rows, pick_m, pick_s)
+    dt = sync_time() - t0
+    launches = {"dfpwm_encode": kc.dfpwm_encode_kernel.launches, "fma": kf.fma_kernel.launches}
+    plain = {fn.__name__: fn.calls for fn in kernels.PLAIN}
+    audio = sum(e.metrics.samples_decoded for e in engines[2:4]) / 48000
+    say("main_path", case="transcode", mono_lanes=TRANSCODE_MONO, stereo_lanes=TRANSCODE_STEREO,
+        seconds_per_lane=TRANSCODE_SECONDS, windows=len(steps), seconds=round(dt, 4),
+        audio_seconds=round(audio, 1), realtime_factor=round(audio / dt, 1),
+        launches=json.dumps(launches), plain_calls=sum(plain.values()))
+    check(len(steps) == TRANSCODE_SECONDS, f"one window a second ({len(steps)})")
+    check(launches["dfpwm_encode"] == 2 * len(steps) and launches["fma"] > 0,
+          f"kernel (c) launched once per DFPWM group per window ({launches})")
+    check(all(n == 0 for n in plain.values()), f"no plain version on the CUDA path ({plain})")
+    check(audio == (TRANSCODE_MONO + TRANSCODE_STEREO) * TRANSCODE_SECONDS,
+          "every lane transcoded its seconds")
+    for out, nbytes, mask, pos in steps[-1]:
+        check(bool(mask.all()) and float(pos.min()) == TRANSCODE_SECONDS - 1.0, "masks, positions")
+    check(tuple(first[0].shape) == (TRANSCODE_MONO, 6000) and first[0].dtype == torch.uint8
+          and tuple(first[1].shape) == (TRANSCODE_STEREO, 12000), "DFPWM output shapes")
+    check(steps[0][2][0].shape == (TRANSCODE_CHECK, 192000)
+          and steps[0][2][1].tolist() == [192000] * TRANSCODE_CHECK, "pcm16 output shape")
+    del engines
+    torch.cuda.empty_cache()
+
+    # the picked lanes on the CPU: the plain versions, bit for bit
+    t0 = time.perf_counter()
+    want, _, _ = run_transcode("cpu", mono_rows[pick_m], stereo_rows[pick_s],
+                               np.arange(TRANSCODE_CHECK), np.arange(TRANSCODE_CHECK))
+    check(len(want) == len(steps), "the CPU engines take as many steps")
+    for got_step, want_step in zip(steps, want):
+        for got, ref in zip(got_step, want_step):
+            check(all(np.array_equal(a, b) for a, b in zip(got, ref, strict=True)),
+                  "transcode on the card == the CPU engines, picked lanes")
+    # what came out follows its source: kernel (a) on the first window's bytes
+    dec_m, _ = kc.dfpwm_decode_kernel(first[0], DfpwmState.zeros(TRANSCODE_MONO, "cuda"))
+    dec_s, _ = kc.dfpwm_decode_kernel(first[1], DfpwmState.zeros(TRANSCODE_STEREO, "cuda"))
+    dec_s = dec_s[:, 0::2]  # the left channel of the interleaved frames
+    corr_m, corr_s = (torch.cat([window_tone_correlation(dec[i: i + 2048], freq[i: i + 2048],
+                                                         amp[i: i + 2048], start=0)
+                                 for i in range(0, dec.shape[0], 2048)])
+                      for dec, freq, amp in ((dec_m, freq_m, amp_m), (dec_s, freq_s, amp_s)))
+    # the pcm16 body of a picked stereo lane: frames of (left, right) at 48 kHz
+    frames = np.frombuffer(steps[1][2][0][0].tobytes(), "<i2").reshape(-1, 2).astype(np.float64)
+    pcm_corr = float(np.corrcoef(frames[:, 0], np.sin(
+        2 * np.pi * float(freq_s[pick_s[0]]) * (48000 + np.arange(48000)) / 48000))[0, 1])
+    say("transcode_output", lanes_equal_cpu=2 * TRANSCODE_CHECK, compared_windows=len(steps),
+        cpu_seconds=round(time.perf_counter() - t0, 3),
+        mono_corr_min=round(float(corr_m.min()), 4), mono_corr_median=round(float(corr_m.median()), 4),
+        stereo_corr_min=round(float(corr_s.min()), 4),
+        stereo_corr_median=round(float(corr_s.median()), 4), pcm16_corr=round(pcm_corr, 4))
+    check(bool(torch.isfinite(corr_m).all()) and float(corr_m.min()) > 0.8,
+          "mono DFPWM output follows its source tone")
+    check(bool(torch.isfinite(corr_s).all()) and float(corr_s.min()) > 0.8,
+          "stereo DFPWM output's left channel follows its source tone")
+    check(pcm_corr > 0.99, "pcm16 output's left channel is its source tone")
+    del dec_m, dec_s, first
+    torch.cuda.empty_cache()
+    phase_transcode_breakdown(mono_rows, stereo_rows)
+    return launches
+
+
+def phase_transcode_breakdown(mono_rows, stereo_rows) -> None:
+    """Where the time of one transcode window goes: fresh engines over the
+    same bytes step once (allocations), then one window under torch.profiler:
+    its wall time, the host time of the decoders' staging (the column view
+    and its copy to the card, timed by wrapping ``_to_device``), the device
+    time of kernel (c), of the FMA kernel, of the host->device copies and of
+    the other torch ops (PCM decode, resample, lookup, interleave, pack), and
+    the device's busy share of the wall time."""
+    from aukit_tpu_torch.stream import batch as engine_module
+
+    engines = transcode_engines("cuda", len(mono_rows), len(stereo_rows))
+    engines[0].feed_array(mono_rows)
+    engines[1].feed_array(stereo_rows)
+    staged = [0.0]
+    to_device = engine_module._to_device
+
+    def timed_to_device(x, device):
+        t0 = time.perf_counter()
+        r = to_device(x, device)
+        if isinstance(x, np.ndarray):
+            torch.cuda.synchronize()
+            staged[0] += time.perf_counter() - t0
+        return r
+
+    engine_module._to_device = timed_to_device
+    try:
+        t0 = sync_time()
+        transcode_step(engines)
+        first_ms = (sync_time() - t0) * 1e3
+        staged[0] = 0.0
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = sync_time()
+            transcode_step(engines)
+            wall = (sync_time() - t0) * 1e3
+    finally:
+        engine_module._to_device = to_device
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {"dfpwm_encode": "dfpwm_encode_kernel", "fma": "fma_kernel", "htod": "Memcpy HtoD"}
+    spans = {k: [(e.time_range.start, e.time_range.end) for e in dev if v in e.name]
+             for k, v in names.items()}
+    spans["other"] = [(e.time_range.start, e.time_range.end) for e in dev
+                      if not any(v in e.name for v in names.values())]
+    everything = [iv for ivs in spans.values() for iv in ivs]
+    kernels_only = [iv for k, ivs in spans.items() if k != "htod" for iv in ivs]
+    say("step_breakdown", case="transcode", lanes=len(mono_rows) + len(stereo_rows),
+        first_step_ms=round(first_ms, 3), profiled_window_ms=round(wall, 3),
+        staging_host_ms=round(staged[0] * 1e3, 3),
+        **{f"{k}_ms": round(busy_ms(v), 3) for k, v in spans.items()},
+        device_events=len(dev), busy_kernels=round(busy_ms(kernels_only) / wall, 4),
+        busy_with_copies=round(busy_ms(everything) / wall, 4))
+    del engines
+    torch.cuda.empty_cache()
+
+
+def encode_fleet_run(device: str, specs, sigs, wins):
+    """A small encode fleet on ``device``: host-fed floats in jittery chunks
+    (a feed-time gain on one lane), stepped to the end; then two window
+    batches with a volume ramp on two lanes and one lane masked in the
+    first. -> (every step's results, every lane's checkpoint)."""
+    enc = BatchEncodeEngine(specs, chunk_samples=400, device=device)
+    enc.set_volume(3, 0.6)
+    for i, s in enumerate(sigs):
+        for off in range(0, s.shape[1], 170):
+            enc.feed(i, s[:, off: off + 170])
+        enc.feed(i, None)
+    steps = []
+    while (r := enc.step()) is not None:
+        steps.append((r[0].cpu().numpy(), *r[1:]))
+    enc.set_volume(0, 0.4, ramp=True)
+    enc.set_volume(4, 1.8, ramp=True)
+    for k, w in enumerate(wins):
+        mask = np.ones(len(specs), bool)
+        mask[1] = k == 1
+        r = enc.encode_windows(torch.tensor(w, device=device), mask)
+        steps.append((r[0].cpu().numpy(), *r[1:]))
+    return steps, [enc.checkpoint(i) for i in range(len(specs))]
+
+
+def phase_encode_engines() -> None:
+    """The CUDA encode engine against the CPU engine: every encode codec,
+    mono and stereo, 16 lanes each: bytes, nbytes, masks, positions and
+    checkpoints equal."""
+    rng = np.random.default_rng(19)
+    for channels in (1, 2):
+        specs = [EncodeSpec(c, channels) for c in ENCODE_CODECS for _ in range(16)]
+        sigs = [rng.uniform(-1.1, 1.1, (channels, 400 * (1 + i % 3) + 24 * (i % 5)))
+                for i in range(len(specs))]
+        wins = [rng.integers(-128, 128, (len(specs), channels, 1600)).astype(np.int8)
+                for _ in range(2)]
+        launches = kc.dfpwm_encode_kernel.launches
+        (got, ck_got), (want, ck_want) = (encode_fleet_run(d, specs, sigs, wins)
+                                          for d in ("cuda", "cpu"))
+        check(kc.dfpwm_encode_kernel.launches > launches, "kernel (c) ran for the CUDA engine")
+        check(len(got) == len(want) and all(
+            np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w, strict=True)),
+            f"encode fleet ({channels} ch): CUDA engine == CPU engine")
+        check(checkpoints_equal(ck_got, ck_want), f"encode fleet ({channels} ch): checkpoints equal")
+        say("encode_engine_cuda_vs_cpu", channels=channels, lanes=len(specs), steps=len(got),
+            codecs=json.dumps(ENCODE_CODECS), equal=True)
+
+
+def phase_flac_transcode(fx) -> None:
+    """FLAC -> WAV16 through ``transcode_fleet``: eight ragged FLAC lanes of
+    four geometries on the device-resident route (kernels (g), (h) upstream
+    of the PCM pack) against the same fleet and encoder on the CPU, bit for
+    bit; each body wraps into a WAV file."""
+    streams = flac_check_streams(fx, 8)
+    counts = (kg.lpc_restore_kernel.launches, kh.iir_zero_kernel.launches)
+    outs = []
+    for device in ("cuda", "cpu"):
+        fleet = FlacFleet(len(streams), device_restore=True, device_dsp=True, device=device)
+        fleet.feed_many(streams)
+        fleet.feed_many([None] * len(streams))
+        outs.append(transcode_fleet(fleet, BatchEncodeEngine([EncodeSpec("pcm16")] * len(streams),
+                                                             device=device)))
+    check(kg.lpc_restore_kernel.launches > counts[0] and kh.iir_zero_kernel.launches > counts[1],
+          "kernels (g) and (h) ran upstream of the pack")
+    check(outs[0] == outs[1], "FLAC -> WAV16 on the card == on the CPU")
+    check(all(len(b) >= 96000 and len(b) % 96000 == 0 and np.frombuffer(b, "<i2").any()
+              for b in outs[0]), "every lane has whole one-second pcm16 windows of audio")
+    wav = pcm_wav_header(1, 48000, 16, len(outs[0][0])) + outs[0][0]
+    check(wav[:4] == b"RIFF" and len(wav) == 44 + len(outs[0][0]), "the body wraps into a WAV file")
+    say("flac_transcode", lanes=len(streams), bytes=sum(map(len, outs[0])), equal_cpu=True)
+
+
+def phase_encode_time(plain_ms: float) -> dict:
+    """Kernel (c) alone at 32768 x 48000 levels (one second of every lane of
+    the headline fleet), by CUDA events; ``plain_ms`` is its plain version's
+    time on the card at the same shape."""
+    lanes, n = FULL_LANES, 48000
+    x = torch.randint(-128, 128, (lanes, n), dtype=torch.int8, device="cuda")
+    st = [DfpwmState.zeros(lanes, "cuda")]
+
+    def encode():
+        _, st[0] = kc.dfpwm_encode_kernel(x, st[0])
+
+    encode()
+    ms = min(event_ms(encode, 5), event_ms(encode, 5))
+    say("time", kernel="dfpwm_encode", lanes=lanes, samples=n, ms=round(ms, 4),
+        plain_ms=round(plain_ms, 2), gsamples_per_s=round(lanes * n / ms / 1e6, 2),
+        realtime_factor=round(lanes * n / (ms / 1e3) / 48000, 1))
+    # eight int8 levels in, a byte out
+    return {"dfpwm_encode": timing("dfpwm_encode", ms, plain_ms,
+                                   lanes * n * OPS_PER_SAMPLE["dfpwm_encode"], lanes * n * 9 / 8)}
 
 
 def main() -> None:
@@ -1388,10 +1824,12 @@ def main() -> None:
     phase_golden()
     errs = phase_kernel_vs_plain()
     errs.update(phase_block_kernel_vs_plain())
-    tones_u8, levels = encoded_tones(FULL_LANES, 1.0, seed=3)
-    say("encode", lanes=FULL_LANES, bytes=tones_u8.shape[1])
-    for name, err in phase_kernel_vs_plain_main_shapes(tones_u8).items():
+    tones_u8, levels, encode_plain_ms = encoded_tones(FULL_LANES, 1.0, seed=3)
+    say("encode", lanes=FULL_LANES, bytes=tones_u8.shape[1], plain_ms=round(encode_plain_ms, 2))
+    main_errs, times = phase_kernel_vs_plain_main_shapes(tones_u8)
+    for name, err in main_errs.items():
         errs[name] = max(errs[name], err)
+    errs["dfpwm_encode"] = phase_encode_kernel_vs_plain(tones_u8, levels)
     phase_engines(tones_u8)
     launches = phase_main_path(tones_u8, levels)
     del levels
@@ -1407,6 +1845,8 @@ def main() -> None:
     phase_block_step_breakdown(specs, groups)
     del specs, groups
     phase_block_engines()
+    phase_encode_engines()
+    transcode_launches = phase_transcode()
     fx = load_fixtures()
     for name, err in phase_flac_kernel_vs_plain().items():
         errs[name] = max(errs.get(name, 0), err)
@@ -1419,13 +1859,17 @@ def main() -> None:
     for name, err in phase_flac_step_breakdown(flac_streams).items():
         errs[name] = max(errs[name], err)
     del flac_streams
-    times = phase_times()
+    phase_flac_transcode(fx)
+    phase_times()
+    times.update(phase_encode_time(encode_plain_ms))
     times.update(phase_block_times())
     times.update(phase_flac_times())
     rows = (("dfpwm_decode", "dfpwm_decode", "dfpwm.cu", "aukit_tpu/kernels/dfpwm_pallas.py:113",
              launches),
             ("dfpwm_decode_dsp", "dfpwm_decode_dsp", "dfpwm.cu",
              "aukit_tpu/kernels/dfpwm_pallas.py:237", launches),
+            ("dfpwm_encode", "dfpwm_encode", "dfpwm.cu", "aukit_tpu/kernels/dfpwm_pallas.py:348",
+             transcode_launches),
             ("ima_decode", "ima", "adpcm.cu", "aukit_tpu/kernels/ima_pallas.py:94", block_launches),
             ("msadpcm_decode", "msadpcm", "adpcm.cu", "aukit_tpu/kernels/msadpcm_pallas.py:104",
              block_launches),
@@ -1440,8 +1884,7 @@ def main() -> None:
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"aukit_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": counts[name], "max_abs_err": errs[key],
-         "ms": times[key][0], "plain_ms": times[key][1]}
+         "replaces": replaces, "launches": counts[name], "max_abs_err": errs[key], **times[key]}
         for name, key, src, replaces, counts in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

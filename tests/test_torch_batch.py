@@ -13,6 +13,7 @@ import torch
 
 from aukit_tpu.stream import batch as jax_batch
 from aukit_tpu_torch.stream import batch
+from tests import fixtures
 
 REPO = Path(__file__).resolve().parent.parent
 RATES = (8000, 11025)  # a mixed fleet of cheap-to-decode rates (1 s windows)
@@ -45,15 +46,28 @@ def assert_steps_equal(got, want):
         np.testing.assert_array_equal(pg, pw, err_msg=f"positions {i}")
 
 
+def assert_values_equal(got, want, what):
+    """Same type, and equal: a per-channel checkpoint field is an f32[C] row."""
+    assert type(got) is type(want), what
+    if isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype and got.shape == want.shape, what
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        assert got == want, what
+
+
 def assert_checkpoints_equal(got, want):
     assert got.keys() == want.keys()
     for k in want:
         if k == "codec_state":
             assert [type(x) for x in got[k]] == [type(x) for x in want[k]]
             np.testing.assert_array_equal(got[k], want[k])
+        elif k == "dsp":
+            assert got[k].keys() == want[k].keys()
+            for f in want[k]:
+                assert_values_equal(got[k][f], want[k][f], f"dsp.{f}")
         else:
-            assert type(got[k]) is type(want[k]), k
-            assert got[k] == want[k], k
+            assert_values_equal(got[k], want[k], k)
 
 
 def ragged_feeds(rng, lanes, chunk):
@@ -215,11 +229,125 @@ def test_unported_pieces_raise():
     ckpt["dsp"] = {**ckpt["dsp"], "kind": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.restore(0, ckpt)
-    for spec in (batch.LaneSpec("dfpwm"), batch.LaneSpec("ima", 22050, 2, block_align=256)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            batch.BatchStreamEngine([spec], device="cpu", mono=False)
+    ckpt = batch.BatchStreamEngine([batch.LaneSpec("pcm16", 8000, 2)], device="cpu",
+                                   mono=False).checkpoint(0)
+    ckpt["dsp"] = {**ckpt["dsp"], "mono": True}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.restore(0, ckpt)
     with pytest.raises(ValueError):
         batch.LaneSpec("dfpwm", channels=2)
+
+
+# -- per-channel windows (mono=False; twins of tests/test_batch.py:878-955) ---------------
+
+def stereo_pcm16(rate, seconds=1.0):
+    t = np.arange(int(rate * seconds))
+    left = (np.sin(t / 9.0) * 20000).astype(np.int16)
+    right = (np.cos(t / 5.0) * 15000).astype(np.int16)
+    return np.stack([left, right], axis=1).reshape(-1).tobytes()
+
+
+def both_per_channel(specs, feeds, volumes=()):
+    """The same per-lane feeds through both packages' ``mono=False`` engines
+    -> [(engine, steps)]."""
+    runs = []
+    for module, kw in ((batch, {"device": "cpu"}), (jax_batch, {})):
+        eng = module.BatchStreamEngine([module.LaneSpec(*s) for s in specs], mono=False, **kw)
+        for lane, vol, ramp in volumes:
+            eng.set_volume(lane, vol, ramp=ramp)
+        feed_lanes(eng, feeds)
+        runs.append((eng, collect(eng)))
+    return runs
+
+
+def test_per_channel_pcm16_stereo_matches_jax():
+    """A stereo pcm16 lane emits int8[C, T] windows, no mixdown, with a
+    volume ramp broadcast over the channels."""
+    rate = 24000
+    (eng, got), (jeng, want) = both_per_channel([("pcm16", rate, 2)], [stereo_pcm16(rate)],
+                                                [(0, 0.6, True)])
+    assert eng.out_channels == jeng.out_channels == 2
+    assert got[0][0].shape == (1, 2, 48000)
+    assert_steps_equal(got, want)
+    assert (got[0][0][0, 0] != got[0][0][0, 1]).any()
+    assert_checkpoints_equal(eng.checkpoint(0), jeng.checkpoint(0))
+
+
+def test_per_channel_mixed_fleet_and_channel_pad_matches_jax():
+    """A mixed ``mono=False`` fleet: the stereo QOA lane keeps its channels,
+    the mono DFPWM lanes (the fused identity-rate route and an 8 kHz lane)
+    pad to the fleet's 2-channel window by replicating channel 0."""
+    rng = np.random.default_rng(9)
+    specs = [("dfpwm", 48000), ("qoa", 10240, 2), ("dfpwm", 8000)]
+    feeds = [rng.integers(0, 256, 6000, dtype=np.uint8).tobytes(),
+             fixtures.qoa_stream(rng, 2, 10240, [5120, 5120])[8:],
+             rng.integers(0, 256, 1700, dtype=np.uint8).tobytes()]
+    (eng, got), (jeng, want) = both_per_channel(specs, feeds, [(2, 0.5, False)])
+    assert len(got) == 2 and got[0][0].shape == (3, 2, 48000)
+    assert_steps_equal(got, want)
+    for lane in (0, 2):
+        np.testing.assert_array_equal(got[0][0][lane, 0], got[0][0][lane, 1])
+    assert (got[0][0][1, 0] != got[0][0][1, 1]).any()
+    for lane in range(3):
+        assert_checkpoints_equal(eng.checkpoint(lane), jeng.checkpoint(lane))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_per_channel_checkpoint_restores_across_packages(direction):
+    """``mono=False`` checkpoints carry a per-channel FIR row (f32[C]); a
+    mid-stream checkpoint of one package's engine continues bit-identically
+    in the other's."""
+    rate = 24000
+    sig = (np.sin(np.arange(rate * 2) / 7.0) * 9000).astype(np.int16)
+    inter = np.stack([sig, -sig // 2], axis=1).reshape(-1).tobytes()
+
+    def make(module):
+        kw = {"device": "cpu"} if module is batch else {}
+        return module.BatchStreamEngine([module.LaneSpec("pcm16", rate, 2)] * 2, mono=False, **kw)
+
+    src_mod, dst_mod = (jax_batch, batch) if direction == "jax_to_port" else (batch, jax_batch)
+    src = make(src_mod)
+    feed_lanes(src, [inter, inter[: len(inter) // 2 + 10000]])
+    collect_one(src)
+    src.set_volume(1, 1.3, ramp=True)
+    dst = make(dst_mod)
+    for lane in range(2):
+        ck = src.checkpoint(lane)
+        assert isinstance(ck["fir_state"], np.ndarray) and ck["fir_state"].shape == (2,)
+        assert ck["fir_state"].dtype == np.float32 and ck["fir_state"].any()
+        dst.restore(lane, ck)
+        np.testing.assert_array_equal(to_numpy(dst.groups[0].fir)[lane], ck["fir_state"])
+    assert_steps_equal(collect(dst), collect(src))
+    for lane in range(2):
+        assert_checkpoints_equal(dst.checkpoint(lane), src.checkpoint(lane))
+
+
+def test_per_channel_lane_iterator_and_reset_match_jax():
+    """``lane_iterator`` yields [C, T] chunks (sink i takes channel i); a
+    ``reset_lane`` mid-window reads the per-channel FIFO at the lane's own
+    cursor."""
+    rng = np.random.default_rng(10)
+    rate = 8000  # two QOA frames a step: 1.28 s, so a window leaves samples in the FIFO
+    specs = [("pcm16", rate, 2), ("qoa", rate, 2)]
+    feeds = [stereo_pcm16(rate, 2.5), fixtures.qoa_stream(rng, 2, rate, [5120] * 4)[8:]]
+    fresh = fixtures.qoa_stream(rng, 2, rate, [5120, 3000])[8:]
+    outs = []
+    for module, kw in ((batch, {"device": "cpu"}), (jax_batch, {})):
+        eng = module.BatchStreamEngine([module.LaneSpec(*s) for s in specs], mono=False, **kw)
+        feed_lanes(eng, feeds)
+        first = collect_one(eng)
+        eng.reset_lane(1)  # its group FIFO still holds samples
+        assert eng.groups[1].skip.max() > 0
+        eng.feed(1, fresh)
+        eng.feed(1, None)
+        outs.append((first, [(np.asarray(c), p) for c, p in eng.lane_iterator(1)]))
+    (first_g, got), (first_w, want) = outs
+    assert_steps_equal([first_g], [first_w])
+    assert len(got) == len(want) > 1
+    for (cg, pg), (cw, pw) in zip(got, want):
+        assert cg.shape == (2, 48000) and cg.dtype == np.int8
+        np.testing.assert_array_equal(cg, cw)
+        assert pg == pw
 
 
 def test_cuda_engine_raises_without_cuda():
@@ -271,6 +399,28 @@ for kw in ({}, {"device_restore": True, "device_dsp": True}):
     while fleet.step() is not None:
         pass
     assert fleet.done and fleet.checkpoint(0)["ended"]
+# per-channel windows, and the write path: a transcode and a host-fed encode
+dec = t.BatchStreamEngine([t.LaneSpec("pcm16", 1000, 2), t.LaneSpec("ulaw", 1000)],
+                          device="cpu", mono=False)
+enc = t.BatchEncodeEngine([t.EncodeSpec("pcm24", 2), t.EncodeSpec("dfpwm", 2)], chunk_samples=64,
+                          device="cpu")
+dec.feed(0, rng.integers(0, 256, 4000, dtype=np.uint8).tobytes())
+dec.feed(1, rng.integers(0, 256, 1000, dtype=np.uint8).tobytes())
+r = dec.step()
+assert r[0].shape == (2, 2, 48000) and r[1].all()
+out, nbytes, mask, pos = enc.encode_windows(r[0][:, :, :512], r[1])
+assert out.shape == (2, 512 * 2 * 3) and nbytes.tolist() == [3072, 128]
+enc.feed(0, rng.uniform(-1, 1, (2, 100)))
+enc.feed(1, rng.uniform(-1, 1, (2, 100)))
+enc.feed_many([None, None])
+sizes = []
+while (r := enc.step()) is not None:
+    sizes.append(r[1].tolist())
+assert sizes == [[384, 16], [216, 9]] and enc.done
+assert len(enc.checkpoint(1)["codec_state"]) == 3
+pcm8 = t.BatchDfpwmEncoder(2, chunk_samples=64, device="cpu")
+pcm8.feed_array(rng.integers(0, 256, (2, 128), dtype=np.uint8))
+assert pcm8.step()[0].shape == (2, 8) and pcm8.step() is not None and pcm8.done
 assert not any(m.startswith(("jax", "aukit_tpu.")) for m in sys.modules if sys.modules[m])
 print("ok")
 """

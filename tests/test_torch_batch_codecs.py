@@ -21,13 +21,13 @@ BYTES_PER_SAMPLE = {"pcm8": 1, "pcm8u": 1, "ulaw": 1, "alaw": 1, "pcm16": 2, "pc
 VOLUMES = ((0, 0.5, False), (1, 1.6, True))
 
 
-def run_both(specs, feeds, volumes=VOLUMES):
+def run_both(specs, feeds, volumes=VOLUMES, **engine_kw):
     """Run the port's and the JAX engine on the same per-lane feeds (EOF
     after each); -> [(steps, checkpoints, samples_decoded)] for each."""
     runs = []
     for module, kw in ((batch, {"device": "cpu"}), (jax_batch, {})):
         eng = module.BatchStreamEngine([module.LaneSpec(**dataclasses.asdict(s)) for s in specs],
-                                       **kw)
+                                       **kw, **engine_kw)
         for lane, vol, ramp in volumes:
             eng.set_volume(lane, vol, ramp=ramp)
         feed_lanes(eng, feeds)
@@ -62,6 +62,54 @@ def test_elementwise_codec_engine_matches_jax(codec, channels):
     second = BYTES_PER_SAMPLE[codec] * rate * channels
     feeds = [elementwise_feed(rng, codec, second * (1 + i % 2) + 37 * i) for i in range(3)]
     assert_runs_equal(run_both([batch.LaneSpec(codec, rate, channels)] * 3, feeds))
+
+
+@pytest.mark.parametrize("codec,channels", [(c, 2) for c in sorted(BYTES_PER_SAMPLE)]
+                         + [("pcm16", 1), ("ulaw", 1), ("f32be", 1)])
+def test_elementwise_codec_per_channel_matches_jax(codec, channels):
+    """``mono=False``: windows int8[L, C, T], every channel through the
+    resample and the FIR with its own carry, the ramp broadcast over them;
+    checkpoints carry f32[C] rows."""
+    rng = np.random.default_rng(100 + sorted(BYTES_PER_SAMPLE).index(codec) * 2 + channels)
+    rate = 1000
+    second = BYTES_PER_SAMPLE[codec] * rate * channels
+    feeds = [elementwise_feed(rng, codec, second * (1 + i % 2) + 37 * i) for i in range(3)]
+    runs = run_both([batch.LaneSpec(codec, rate, channels)] * 3, feeds, mono=False)
+    assert runs[0][0][0][0].shape == (3, channels, 48000)
+    assert runs[0][1][0]["fir_state"].shape == (channels,)
+    assert_runs_equal(runs)
+
+
+@pytest.mark.parametrize("mode", ["none", "cubic", "sinc"])
+def test_per_channel_interpolation_modes_match_jax(mode):
+    """The interpolators over a 3-D ``[L, C, T]`` block: XLA compiles another
+    program than for ``[L, T]``, with the same fused multiply-adds."""
+    rng = np.random.default_rng(120)
+    feeds = [elementwise_feed(rng, "f32", 4 * 2 * 1000 * (1 + i) + 8 * i) for i in range(2)]
+    runs = run_both([batch.LaneSpec("f32", 1000, 2)] * 2, feeds, interpolation=mode, mono=False)
+    assert_runs_equal(runs)
+
+
+def test_block_codecs_per_channel_match_jax():
+    """Stereo IMA, MS ADPCM and QOA lanes and a mono IMA lane in one
+    ``mono=False`` fleet (one-second windows, channel 0 replicated for the
+    mono lane), short final QOA frame included."""
+    rng = np.random.default_rng(130)
+    rate = 2000
+    ima2 = batch.LaneSpec("ima", rate, 2, block_align=72)
+    ima1 = batch.LaneSpec("ima", rate, 1, block_align=36)
+    ms2 = batch.LaneSpec("msadpcm", rate, 2, block_align=46)
+    specs = [ima2, ima1, ms2, batch.LaneSpec("qoa", 5120, 2)]
+    feeds = [fixtures.ima_wav_blocks(rng, 2 * batch_codecs.geometry(ima2)[0] // 72 + 3, 72, 2),
+             fixtures.ima_wav_blocks(rng, batch_codecs.geometry(ima1)[0] // 36, 36, 1),
+             fixtures.ms_encode(ms_signal(rng, 2, batch_codecs.geometry(ms2)[1] + 200), 46),
+             fixtures.qoa_stream(rng, 2, 5120, [5120, 1000])[8:]]
+    runs = run_both(specs, feeds, ((0, 0.5, False), (2, 1.6, True)), mono=False)
+    first = runs[0][0][0][0]
+    assert first.shape == (4, 2, 48000)
+    np.testing.assert_array_equal(first[1, 0], first[1, 1])
+    assert (first[0, 0] != first[0, 1]).any() and (first[3, 0] != first[3, 1]).any()
+    assert_runs_equal(runs)
 
 
 def test_three_channel_mixdown_matches_jax():

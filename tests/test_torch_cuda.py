@@ -1,7 +1,7 @@
 """The CUDA kernels of aukit_tpu_torch on the card, against their plain
-PyTorch versions on the same CUDA tensors, and the CUDA engine against the
-CPU engine. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
-and skip elsewhere. This file imports neither jax nor aukit_tpu, so it also
+PyTorch versions on the same CUDA tensors, and the CUDA engines (decode,
+per-channel decode, encode, transcode) against the CPU engines. A CUDA
+kernel has no CPU mode, so these tests need an NVIDIA GPU and skip elsewhere. This file imports neither jax nor aukit_tpu, so it also
 runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from aukit_tpu_torch import BatchDfpwmDecoder, BatchStreamEngine, LaneSpec
+from aukit_tpu_torch import (BatchDfpwmDecoder, BatchDfpwmEncoder, BatchEncodeEngine,
+                             BatchStreamEngine, EncodeSpec, LaneSpec, transcode_fleet)
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.kernels import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
-                                     dfpwm_decode_kernel, dfpwm_decode_ref, fma_kernel, fma_ref,
+                                     dfpwm_decode_kernel, dfpwm_decode_ref, dfpwm_encode_kernel,
+                                     dfpwm_encode_ref, fma_kernel, fma_ref,
                                      iir_zero_kernel, iir_zero_ref, ima_decode_kernel,
                                      ima_decode_ref, lpc_restore_kernel, lpc_restore_ref,
                                      msadpcm_decode_kernel, msadpcm_decode_ref, qoa_lms_kernel,
@@ -111,7 +113,12 @@ def assert_engines_equal(a, b):
     for x, y in zip(ck_a, ck_b):
         assert x.keys() == y.keys()
         for k in x:
-            np.testing.assert_array_equal(np.asarray(x[k]), np.asarray(y[k]), err_msg=k)
+            if isinstance(x[k], dict):  # per-channel DSP carries are f32[C] rows
+                assert x[k].keys() == y[k].keys()
+                for f in x[k]:
+                    np.testing.assert_array_equal(x[k][f], y[k][f], err_msg=f"{k}.{f}")
+            else:
+                np.testing.assert_array_equal(np.asarray(x[k]), np.asarray(y[k]), err_msg=k)
 
 
 def test_engine_on_cuda_matches_engine_on_cpu():
@@ -320,3 +327,140 @@ def test_flac_fleet_on_cuda_matches_cpu():
                                               np.asarray(y[k], dtype=object), err_msg=k)
         assert iir_zero_kernel.launches > counts[1]
         assert (lpc_restore_kernel.launches > counts[0]) == kw["device_restore"]
+
+
+# -- the write path: kernel (c), the encode engines, per-channel windows ------------------
+
+@pytest.mark.parametrize("lanes,nsamples", [(1, 8), (65, 264), (300, 776)])
+def test_encode_kernel_matches_plain(lanes, nsamples):
+    """Kernel (c) against its plain version: bytes and state, two chained
+    calls from a random state, ragged lanes and a ragged last tile, rows at
+    the rails (the tie rule ``level == charge == 127`` decides bits there)."""
+    rng = np.random.default_rng(lanes)
+    st = ref_st = random_state(rng, lanes, "cuda")
+    for _ in range(2):
+        levels = rng.integers(-128, 128, (lanes, nsamples)).astype(np.int8)
+        levels[::7] = 127
+        levels[3::7] = -128
+        levels = torch.tensor(levels, device="cuda")
+        out, st = dfpwm_encode_kernel(levels, st)
+        ref, ref_st = dfpwm_encode_ref(levels, ref_st)
+        assert out.dtype == torch.uint8 and out.shape == (lanes, nsamples // 8)
+        assert_same(out, st, ref, ref_st)
+
+
+def test_encode_kernel_takes_strided_and_unaligned_levels():
+    """The kernel reads rows as 4-byte words: a strided view, and a
+    contiguous view whose base is not word-aligned, are copied first."""
+    rng = np.random.default_rng(8)
+    base = torch.tensor(rng.integers(-128, 128, (9, 72)).astype(np.int8), device="cuda")
+    st = random_state(rng, 4, "cuda")
+    for levels in (base[::2, :64][:4], base.reshape(-1)[1: 1 + 4 * 64].reshape(4, 64)):
+        out, new = dfpwm_encode_kernel(levels, st)
+        ref, ref_new = dfpwm_encode_ref(levels, st)
+        assert_same(out, new, ref, ref_new)
+
+
+def test_encode_then_decode_on_card_tracks_the_signal():
+    t = torch.arange(48000, device="cuda", dtype=torch.float64) / 48000
+    freq = torch.tensor([220.0, 440.0, 1000.0], device="cuda", dtype=torch.float64)[:, None]
+    levels = torch.trunc(80 * torch.sin(2 * np.pi * freq * t)).to(torch.int8)
+    enc, _ = dfpwm_encode_kernel(levels, DfpwmState.zeros(3, "cuda"))
+    dec, _ = dfpwm_decode_kernel(enc, DfpwmState.zeros(3, "cuda"))
+    err = (dec[:, 4800:].double() - levels[:, 4800:].double())
+    assert float(err.pow(2).mean().sqrt()) < 12.0
+
+
+def drain_encoder(enc):
+    steps = []
+    while (r := enc.step()) is not None:
+        steps.append((r[0].cpu().numpy(), r[1].copy(), r[2].copy(), r[3].copy()))
+    return steps
+
+
+def assert_encode_steps_equal(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w, strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_encode_engine_on_cuda_matches_cpu():
+    """Every encode codec, mono and stereo, in one engine: host-fed floats in
+    jittery chunks with ragged EOF, then ``encode_windows`` at gain 1 and
+    with a ramp and a masked lane; bytes, nbytes, masks, positions and
+    checkpoints of the CUDA engine equal the CPU engine's."""
+    rng = np.random.default_rng(9)
+    codecs = ("dfpwm", "pcm8", "pcm16", "pcm24", "pcm32")
+    for channels in (1, 2):
+        specs = [EncodeSpec(c, channels) for c in codecs for _ in range(2)]
+        sigs = [rng.uniform(-1.1, 1.1, (channels, 400 * (1 + i % 3) + 24 * i))
+                for i in range(len(specs))]
+        wins = [rng.integers(-128, 128, (len(specs), channels, 1600)).astype(np.int8)
+                for _ in range(2)]
+        launches = dfpwm_encode_kernel.launches
+        runs = []
+        for device in ("cuda", "cpu"):
+            enc = BatchEncodeEngine(specs, chunk_samples=400, device=device)
+            enc.set_volume(3, 0.6)
+            for i, s in enumerate(sigs):
+                for off in range(0, s.shape[1], 170):
+                    enc.feed(i, s[:, off: off + 170])
+                enc.feed(i, None)
+            steps = drain_encoder(enc)
+            enc.set_volume(0, 0.4, ramp=True)
+            enc.set_volume(4, 1.8, ramp=True)
+            for k, w in enumerate(wins):
+                mask = np.ones(len(specs), bool)
+                mask[1] = k == 1
+                out, nbytes, m, pos = enc.encode_windows(torch.tensor(w, device=device), mask)
+                steps.append((out.cpu().numpy(), nbytes, m, pos))
+            runs.append((steps, [enc.checkpoint(i) for i in range(len(specs))]))
+        assert dfpwm_encode_kernel.launches > launches
+        assert_encode_steps_equal(runs[0][0], runs[1][0])
+        for x, y in zip(runs[0][1], runs[1][1]):
+            assert x.keys() == y.keys()
+            for k in x:
+                np.testing.assert_array_equal(np.asarray(x[k]), np.asarray(y[k]), err_msg=k)
+
+
+def test_batch_dfpwm_encoder_on_cuda_matches_cpu():
+    rng = np.random.default_rng(10)
+    wire = rng.integers(0, 256, (5, 2000), dtype=np.uint8)
+    runs = []
+    for device in ("cuda", "cpu"):
+        enc = BatchDfpwmEncoder(5, chunk_samples=800, device=device)
+        enc.feed_array(torch.tensor(wire, device=device))
+        steps = []
+        while (r := enc.step()) is not None:
+            steps.append((r[0].cpu().numpy(), r[1].copy(), r[2].copy()))
+        runs.append(steps)
+    assert_encode_steps_equal(*runs)
+
+
+def test_per_channel_transcode_on_cuda_matches_cpu():
+    """A ``mono=False`` fleet (stereo PCM16, stereo QOA, stereo IMA and a
+    mono DFPWM lane padded to two channels, a volume ramp) decoded to
+    ``[L, 2, T]`` windows and transcoded device-to-device into interleaved
+    stereo DFPWM: windows, masks, positions, per-channel checkpoints and the
+    encoded bytes of the CUDA engines equal the CPU engines'."""
+    rng = np.random.default_rng(11)
+    specs = [LaneSpec("pcm16", 8000, 2), LaneSpec("qoa", 10240, 2),
+             LaneSpec("ima", 8000, 2, block_align=256), LaneSpec("dfpwm", 48000)]
+    nbytes = [8000 * 4 + 100, 2 * (8 + 2 * (16 + 2048)), 256 * 20, 7000]
+    feeds = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in nbytes]
+    vols = [(0, 0.5, True)]
+    runs = [run_engine(lambda d=d: BatchStreamEngine(specs, device=d, mono=False), feeds, vols)
+            for d in ("cuda", "cpu")]
+    assert runs[0][0][0][0].shape == (4, 2, 48000)
+    assert runs[0][1][0]["fir_state"].shape == (2,)
+    assert_engines_equal(*runs)
+    outs = []
+    for device in ("cuda", "cpu"):
+        dec = BatchStreamEngine(specs, device=device, mono=False)
+        for lane, data in enumerate(feeds):
+            dec.feed(lane, data[: len(data) // 2])  # about half a second a lane
+            dec.feed(lane, None)
+        outs.append(transcode_fleet(dec, BatchEncodeEngine([EncodeSpec("dfpwm", 2)] * 4,
+                                                           device=device)))
+    assert outs[0] == outs[1] and all(b and len(b) % 12000 == 0 for b in outs[0])

@@ -216,7 +216,7 @@ def test_host_route_runs_no_kernel_and_fleet_options():
     kernels.reset_counts()
     run_both([make_flac(48000, 3, seed=21)])
     assert all(fn.calls == 0 for fn in kernels.PLAIN)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
         FlacFleet(2, mesh=object(), device="cpu")
     FlacFleet(2)  # the host route needs no card
     if not torch.cuda.is_available():
