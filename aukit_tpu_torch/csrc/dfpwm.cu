@@ -18,23 +18,56 @@
 // Layout. The wrapper keeps the JAX wrappers' lane-major layout (bytes
 // u8[L,B] in, samples i8[L,8B] out). A thread reading its own row would make
 // every warp load touch 32 rows, so a block of LANES lanes stages TILE_BYTES
-// bytes of each of its rows in shared memory first (a warp loads 32
-// consecutive bytes of one row), and writes its samples back through a
-// second shared tile as 4-byte words along each row. Both tiles have an odd
-// row stride in words, so the per-lane row accesses hit 32 distinct banks.
-// The cost is two __syncthreads per tile and 18 KB of shared memory per block.
+// bytes of each of its rows in shared memory first and writes its samples
+// back through a second shared tile, along each row. The decoder moves 16
+// bytes an instruction wherever the rows allow it: it loads a row's tile as
+// 16-byte words when the row length is a multiple of 16, a lane writes the
+// 16 samples of two bytes as one 16-byte word into the sample tile, and the
+// tile goes out as 16-byte stores when the row length is even (every row of
+// samples then starts on a 16-byte boundary). The sample tile's row stride
+// is 68 words, 4 more than a multiple of 32, so a quarter warp's 16-byte
+// accesses cover all 32 banks whether eight lanes write their own rows or
+// eight threads read along one row. Odd row lengths take 4-byte stores and
+// byte loads; the ragged last tile runs the same code with a shorter count.
+// The encoder keeps its 4-byte staging and its odd strides.
 //
-// Bounds on the H100. Per 8 samples a lane reads 1 byte and writes 8, and
-// each sample is a chain of a few dozen dependent integer ops (the predictor,
-// the strength slew, the antijerk average, the lowpass), plus the float
-// epilogue for dfpwm_decode_dsp. With enough lanes in flight that would make
-// it bound by the int8 writes at large L. Lanes in flight: one thread per
-// lane gives 32768 lanes = 1024 warps, about 8 per SM over 132 SMs, and the
-// dependent chain is hidden only by those warps and by the ILP across the 8
-// unrolled bit steps, so at that width the chain's latency may bound it
-// first. LANES = 64 gives 512 blocks at 32768 lanes, 3.9 per SM, so the last
-// wave is balanced. PERF.md has the measured share of write bandwidth.
-// Speed is later work.
+// What bounds the decoder on the H100 (measured: PERF.md). Per 8 samples a
+// lane reads 1 byte and writes 8, far under the memory rate: instructions
+// bound it. A sample's recurrence compiles to 26 instructions (19 on the
+// integer pipe, which starts a warp's instruction every other cycle, 7
+// multiply-adds on the float pipe), of which 8 form the chain from one
+// charge to the next. One thread per lane gives 32768 lanes = 1024 warps,
+// two per scheduler, so the chain's latency and the integer pipe bound it
+// together, and the lanes are the only parallelism the recurrence has.
+// LANES = 64 gives 512 blocks at 32768 lanes, 3.9 per SM (32 or 64 lanes a
+// block time the same). The barriers (three per tile of 256 samples a lane)
+// cost nothing beside a tile's ~7000 instructions.
+//
+// The fused epilogue (dfpwm_decode_dsp) is off that chain: it reads only the
+// sequence of lowpass words. So its cost is instruction slots, and its design
+// is to spend few, and those on the float pipe, the load unit and the
+// conversion unit, which the recurrence leaves idle:
+//   - the normalisation v / (v < 0 ? 128 : 127) is a lookup in a 256-entry
+//     table in shared memory that each block fills with the same IEEE
+//     division. A lane whose charge, previous charge and lowpass start in
+//     [-128, 127] and whose strength starts in [0, 1023] keeps its lowpass
+//     word in [-128, 127] for ever (every update moves a word toward a
+//     target in that range), so the range is checked once per call and lane,
+//     not per sample; any other lane divides, as the plain version does;
+//   - the rail 128 or 127 is 127.5 - copysign(0.5, o): one bit operation and
+//     one exact float add instead of a compare and a select;
+//   - clamp, truncation and cast are one conversion float -> int32 toward
+//     zero (it saturates, NaN gives 0) and, per two samples, one packing
+//     conversion int32 -> int8 that saturates to [-128, 127]: the same
+//     result as clamp(-128, 127) then truncation for every float, and as the
+//     plain version's cast of NaN;
+//   - the ramp's time is a float advanced by an exact + 1.0f while the call
+//     has at most 2^24 samples a lane, and converted from the 64-bit index
+//     beyond that;
+//   - a masked lane's words are and-ed with zero once per byte.
+// The compiler merges the two conversions into one packing conversion per
+// two samples (F2IP); the epilogue compiles to 8.6 instructions a sample,
+// where the one that divided, clamped and selected took 35.
 //
 // Exactness. Integer semantics are those of _decode_tile (int32, arithmetic
 // right shifts -- what nvcc does for signed >>, round-half-up at PREC). The
@@ -58,9 +91,14 @@ constexpr int LOWPASS_NUM = 140;
 
 constexpr int LANES = 64;                       // threads (= lanes) per block
 constexpr int TILE_BYTES = 32;                  // bytes per lane per tile
+// the encoder's tiles
 constexpr int IN_STRIDE = TILE_BYTES + 4;       // 9 words: odd
 constexpr int OUT_WORDS = TILE_BYTES * 2;       // 8 int8 samples = 2 words per byte
-constexpr int OUT_STRIDE = OUT_WORDS + 1;       // 65 words: odd
+// the decoder's tiles: rows of 16-byte words
+constexpr int DEC_IN_STRIDE = TILE_BYTES + 16;  // bytes; 12 words
+constexpr int DEC_OUT_STRIDE = OUT_WORDS + 4;   // 68 words: 4 more than a multiple of 32
+constexpr int DEC_OUT_VECS = OUT_WORDS / 4;     // 16-byte words per row of the sample tile
+constexpr long long RAMP_EXACT_SAMPLES = 1LL << 24;  // a float counts this far by + 1.0f
 
 struct Lane {
   int q, s, lb, pq, lp;
@@ -95,9 +133,97 @@ __device__ __forceinline__ float norm8(int v) {
   return __fdiv_rn(static_cast<float>(v), v < 0 ? 128.0f : 127.0f);
 }
 
-// DSP: the fused epilogue of _decode_dsp_kernel (dfpwm_pallas.py:178-213).
-// GAIN: the per-lane volume ramp g0 + slope * t (compiled out when false).
-template <bool DSP, bool GAIN>
+// A lane whose words start in these ranges keeps them there: the charge
+// moves toward -128 or 127 by at most the distance (strength <= 1023 of
+// 1024), the antijerk average lies between two charges, the lowpass moves
+// toward it by 140/256 of the distance.
+__device__ __forceinline__ bool tame(const Lane& st) {
+  const auto in8 = [](int v) { return static_cast<unsigned>(v + 128) < 256u; };
+  return in8(st.q) && in8(st.pq) && in8(st.lp) &&
+         static_cast<unsigned>(st.s) <= static_cast<unsigned>(STRENGTH_MAX);
+}
+
+// d = bytes {sat8(lo), sat8(hi), upper's low 16 bits}, lowest byte first.
+__device__ __forceinline__ uint32_t pack_sat8(int lo, int hi, uint32_t upper) {
+  uint32_t d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(hi), "r"(lo), "r"(upper));
+  return d;
+}
+
+// The fused epilogue's state of one lane. RAMP: 0 no gain input, 1 the
+// ramp's time counted in float, 2 converted from the 64-bit sample index.
+struct Dsp {
+  float prevf, alpha, g0, gs, t;
+  uint32_t live;  // all ones, or zero for a masked lane
+};
+
+// Decodes one byte into 8 samples as two words, lowest byte first. DSP: the
+// fused epilogue of _decode_dsp_kernel (dfpwm_pallas.py:178-213). TABLE: the
+// lane is tame, so norm8 is tab[lp + 128].
+template <bool DSP, int RAMP, bool TABLE>
+__device__ __forceinline__ void decode_byte(Lane& st, Dsp& e, const float* __restrict__ tab,
+                                            int byte, long long sample0, uint32_t& w0,
+                                            uint32_t& w1) {
+  int v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int lp = decode_bit(st, (byte >> k) & 1);
+    if (DSP) {
+      const float f = TABLE ? tab[lp + 128] : norm8(lp);
+      float o = __fmaf_rn(e.alpha, __fsub_rn(f, e.prevf), e.prevf);
+      if (RAMP == 1) {
+        o = __fmul_rn(o, __fmaf_rn(e.gs, e.t, e.g0));
+        e.t = __fadd_rn(e.t, 1.0f);
+      } else if (RAMP == 2) {
+        o = __fmul_rn(o, __fmaf_rn(e.gs, static_cast<float>(sample0 + k), e.g0));
+      }
+      // 128 for o < 0, else 127 (-0.0 and a negative NaN take 128: their
+      // products are the same -0.0 and NaN)
+      const float half = __uint_as_float((__float_as_uint(o) & 0x80000000u) | 0x3f000000u);
+      o = __fmul_rn(o, __fsub_rn(127.5f, half));
+      v[k] = __float2int_rz(o);  // saturates to int32; NaN -> 0
+      e.prevf = f;
+    } else {
+      v[k] = lp;
+    }
+  }
+  if (DSP) {
+    // saturation to int8 here and to int32 above equal clamp(-128, 127)
+    // before the truncation
+    w0 = pack_sat8(v[0], v[1], pack_sat8(v[2], v[3], 0u)) & e.live;
+    w1 = pack_sat8(v[4], v[5], pack_sat8(v[6], v[7], 0u)) & e.live;
+  } else {
+    // the raw lowpass word wraps to int8, as astype(int8) does
+    w0 = __byte_perm(__byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040), 0x5410);
+    w1 = __byte_perm(__byte_perm(v[4], v[5], 0x0040), __byte_perm(v[6], v[7], 0x0040), 0x5410);
+  }
+}
+
+// One lane's nb bytes of a tile: in (its row of the byte tile) -> out (its
+// row of the sample tile), two bytes per 16-byte word.
+template <bool DSP, int RAMP, bool TABLE>
+__device__ __forceinline__ void decode_row(Lane& st, Dsp& e, const float* __restrict__ tab,
+                                           const uint8_t* __restrict__ in,
+                                           uint32_t* __restrict__ out, int nb,
+                                           long long sample0) {
+  int j = 0;
+  for (; j + 1 < nb; j += 2) {
+    const int pair = *reinterpret_cast<const uint16_t*>(in + j);
+    uint4 w;
+    decode_byte<DSP, RAMP, TABLE>(st, e, tab, pair & 0xff, sample0 + 8 * j, w.x, w.y);
+    decode_byte<DSP, RAMP, TABLE>(st, e, tab, pair >> 8, sample0 + 8 * j + 8, w.z, w.w);
+    *reinterpret_cast<uint4*>(out + 2 * j) = w;
+  }
+  if (j < nb) {
+    uint2 w;
+    decode_byte<DSP, RAMP, TABLE>(st, e, tab, in[j], sample0 + 8 * j, w.x, w.y);
+    *reinterpret_cast<uint2*>(out + 2 * j) = w;
+  }
+}
+
+// vec_in: rows of bytes start on 16-byte boundaries (nbytes % 16 == 0 and the
+// base does); vec_out: rows of samples do (nbytes even). The launcher decides.
+template <bool DSP, int RAMP>
 __global__ void __launch_bounds__(LANES)
 dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
                     const int32_t* __restrict__ state_in,
@@ -105,10 +231,12 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
                     int lanes, long long nbytes, float alpha,
                     const bool* __restrict__ mask,
                     const float* __restrict__ gain0,
-                    const float* __restrict__ gain_slope) {
-  __shared__ uint32_t in_tile[LANES * IN_STRIDE / 4];
-  __shared__ uint32_t out_tile[LANES * OUT_STRIDE];
-  const uint8_t* in_b = reinterpret_cast<const uint8_t*>(in_tile);
+                    const float* __restrict__ gain_slope, bool vec_in, bool vec_out) {
+  __shared__ uint4 in_tile[LANES * DEC_IN_STRIDE / 16];
+  __shared__ uint4 out_tile[LANES * DEC_OUT_STRIDE / 4];
+  __shared__ float norm_tab[DSP ? 256 : 1];
+  uint8_t* in_b = reinterpret_cast<uint8_t*>(in_tile);
+  uint32_t* out_w = reinterpret_cast<uint32_t*>(out_tile);
 
   const int tid = threadIdx.x;
   const int lane0 = blockIdx.x * LANES;
@@ -125,54 +253,64 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
     st.lp = state_in[4 * lanes + lane];
   }
   // epilogue state: the previous raw sample is the incoming lowpass word
-  float prevf = norm8(st.lp);
-  const bool live = !DSP || !active || mask == nullptr || mask[lane];
-  float g0 = 1.0f, gs = 0.0f;
-  if (GAIN && active) {
-    g0 = gain0[lane];
-    gs = gain_slope[lane];
+  Dsp e{norm8(st.lp), alpha, 1.0f, 0.0f, 0.0f, 0xffffffffu};
+  if (DSP && active && mask != nullptr && !mask[lane]) e.live = 0u;
+  if (RAMP != 0 && active) {
+    e.g0 = gain0[lane];
+    e.gs = gain_slope[lane];
+  }
+  const bool table = DSP && tame(st);
+  if (DSP) {
+    for (int i = tid; i < 256; i += LANES) norm_tab[i] = norm8(i - 128);
   }
 
   for (long long b0 = 0; b0 < nbytes; b0 += TILE_BYTES) {
     const int nb = static_cast<int>(min(static_cast<long long>(TILE_BYTES), nbytes - b0));
-    uint8_t* in_w = reinterpret_cast<uint8_t*>(in_tile);
-    for (int i = tid; i < nlanes * TILE_BYTES; i += LANES) {
-      const int r = i / TILE_BYTES, c = i % TILE_BYTES;
-      if (c < nb) in_w[r * IN_STRIDE + c] = bytes[(lane0 + r) * nbytes + b0 + c];
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < nb; ++j) {
-        const int byte = in_b[tid * IN_STRIDE + j];
-        uint32_t words[2] = {0u, 0u};
+    if (vec_in) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int v = decode_bit(st, (byte >> k) & 1);
-          int q8 = v;
-          if (DSP) {
-            const float f = norm8(v);
-            float o = __fmaf_rn(alpha, __fsub_rn(f, prevf), prevf);
-            if (GAIN) {
-              const float t = static_cast<float>((b0 + j) * 8 + k);
-              o = __fmul_rn(o, __fmaf_rn(gs, t, g0));
-            }
-            o = __fmul_rn(o, o < 0.0f ? 128.0f : 127.0f);
-            o = fminf(fmaxf(o, -128.0f), 127.0f);
-            q8 = live ? static_cast<int>(o) : 0;  // truncates, like astype(int8)
-            prevf = f;
-          }
-          words[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(q8)) << (8 * (k & 3));
+      for (int k = 0; k < TILE_BYTES / 16; ++k) {
+        const int i = tid + k * LANES;
+        const int r = i / (TILE_BYTES / 16), c = i % (TILE_BYTES / 16);
+        if (r < nlanes && 16 * c < nb) {
+          in_tile[r * (DEC_IN_STRIDE / 16) + c] =
+              *reinterpret_cast<const uint4*>(bytes + (lane0 + r) * nbytes + b0 + 16 * c);
         }
-        out_tile[tid * OUT_STRIDE + 2 * j] = words[0];
-        out_tile[tid * OUT_STRIDE + 2 * j + 1] = words[1];
+      }
+    } else {
+      for (int i = tid; i < nlanes * TILE_BYTES; i += LANES) {
+        const int r = i / TILE_BYTES, c = i % TILE_BYTES;
+        if (c < nb) in_b[r * DEC_IN_STRIDE + c] = bytes[(lane0 + r) * nbytes + b0 + c];
+      }
+    }
+    __syncthreads();  // also: the table is filled before the first tile
+    if (active) {
+      const uint8_t* row_in = in_b + tid * DEC_IN_STRIDE;
+      uint32_t* row_out = out_w + tid * DEC_OUT_STRIDE;
+      if (table) {
+        decode_row<DSP, RAMP, true>(st, e, norm_tab, row_in, row_out, nb, b0 * 8);
+      } else {
+        decode_row<DSP, RAMP, false>(st, e, norm_tab, row_in, row_out, nb, b0 * 8);
       }
     }
     __syncthreads();
-    const int words = 2 * nb;
-    for (int i = tid; i < nlanes * words; i += LANES) {
-      const int r = i / words, c = i % words;
-      uint32_t* row = reinterpret_cast<uint32_t*>(out + ((lane0 + r) * nbytes + b0) * 8);
-      row[c] = out_tile[r * OUT_STRIDE + c];
+    if (vec_out) {
+      // nbytes is even and b0 a multiple of 32, so nb is even: nb / 2 words
+#pragma unroll
+      for (int k = 0; k < DEC_OUT_VECS; ++k) {
+        const int i = tid + k * LANES;
+        const int r = i / DEC_OUT_VECS, c = i % DEC_OUT_VECS;
+        if (r < nlanes && 2 * c < nb) {
+          uint4* row = reinterpret_cast<uint4*>(out + ((lane0 + r) * nbytes + b0) * 8);
+          row[c] = out_tile[r * (DEC_OUT_STRIDE / 4) + c];
+        }
+      }
+    } else {
+      const int words = 2 * nb;
+      for (int i = tid; i < nlanes * words; i += LANES) {
+        const int r = i / words, c = i % words;
+        uint32_t* row = reinterpret_cast<uint32_t*>(out + ((lane0 + r) * nbytes + b0) * 8);
+        row[c] = out_w[r * DEC_OUT_STRIDE + c];
+      }
     }
     __syncthreads();  // the next tile overwrites both shared tiles
   }
@@ -269,6 +407,36 @@ dfpwm_encode_kernel(const int8_t* __restrict__ levels,
 
 int blocks_for(int lanes) { return (lanes + LANES - 1) / LANES; }
 
+// Launches the decoder's instantiation for this call: the ramp's time in
+// float while it is exact, 16-byte staging where the rows allow it.
+template <bool DSP>
+int launch_decode(const void* bytes, const void* state_in, void* out, void* state_out, int lanes,
+                  long long nbytes, float alpha, const void* mask, const void* gain0,
+                  const void* gain_slope, void* stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec_in = nbytes % 16 == 0 && aligned(bytes);
+  const bool vec_out = nbytes % 2 == 0 && aligned(out);
+  const auto run = [&](auto kernel) {
+    kernel<<<blocks_for(lanes), LANES, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(state_in),
+        static_cast<int8_t*>(out), static_cast<int32_t*>(state_out), lanes, nbytes, alpha,
+        static_cast<const bool*>(mask), static_cast<const float*>(gain0),
+        static_cast<const float*>(gain_slope), vec_in, vec_out);
+  };
+  if constexpr (DSP) {
+    if (gain0 != nullptr) {
+      if (nbytes * 8 <= RAMP_EXACT_SAMPLES) {
+        run(dfpwm_decode_kernel<true, 1>);
+      } else {
+        run(dfpwm_decode_kernel<true, 2>);
+      }
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  run(dfpwm_decode_kernel<DSP, 0>);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bytes u8[L,B], state_in/state_out i32[5,L], out i8[L,8B]; all contiguous.
@@ -276,12 +444,8 @@ int blocks_for(int lanes) { return (lanes + LANES - 1) / LANES; }
 extern "C" int aukit_dfpwm_decode(const void* bytes, const void* state_in,
                                   void* out, void* state_out, int lanes,
                                   long long nbytes, void* stream) {
-  dfpwm_decode_kernel<false, false>
-      <<<blocks_for(lanes), LANES, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(state_in),
-          static_cast<int8_t*>(out), static_cast<int32_t*>(state_out), lanes,
-          nbytes, 0.0f, nullptr, nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode<false>(bytes, state_in, out, state_out, lanes, nbytes, 0.0f, nullptr,
+                              nullptr, nullptr, stream);
 }
 
 // As aukit_dfpwm_decode, with the fused epilogue. mask: bool[L] or null
@@ -291,21 +455,8 @@ extern "C" int aukit_dfpwm_decode_dsp(const void* bytes, const void* state_in,
                                       long long nbytes, float alpha,
                                       const void* mask, const void* gain0,
                                       const void* gain_slope, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const uint8_t*>(bytes);
-  const auto* si = static_cast<const int32_t*>(state_in);
-  auto* o = static_cast<int8_t*>(out);
-  auto* so = static_cast<int32_t*>(state_out);
-  const auto* m = static_cast<const bool*>(mask);
-  if (gain0 != nullptr) {
-    dfpwm_decode_kernel<true, true><<<blocks_for(lanes), LANES, 0, s>>>(
-        b, si, o, so, lanes, nbytes, alpha, m, static_cast<const float*>(gain0),
-        static_cast<const float*>(gain_slope));
-  } else {
-    dfpwm_decode_kernel<true, false><<<blocks_for(lanes), LANES, 0, s>>>(
-        b, si, o, so, lanes, nbytes, alpha, m, nullptr, nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode<true>(bytes, state_in, out, state_out, lanes, nbytes, alpha, mask, gain0,
+                             gain_slope, stream);
 }
 
 // levels i8[L,8B] (word-aligned), state_in/state_out i32[3,L] (charge,

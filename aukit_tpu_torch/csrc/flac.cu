@@ -14,12 +14,15 @@
 // (i >= block) pass through.
 //
 // Design. Subframes are independent, so the FLAC fleet hands this kernel
-// every subframe of every stream of a step as one row each (32768 rows of
-// 4096 samples at bench scale). One thread owns one row: the order-K window
-// of restored samples and the K coefficients sit in registers, K is a
-// template parameter (4, 8, 16 or 32: the batch's maximum order, rounded up
-// as _order_bucket does), and rows are staged through shared memory
-// (lane_scan.cuh).
+// every subframe of every stream of a step as one row each (7168 rows of
+// 4096 samples in a step of the 2048-lane fleet, 32768 at bench scale). One
+// thread owns one row: the order-K window of restored samples and the K
+// coefficients sit in registers, K is a template parameter (4, 8, 16 or 32:
+// the batch's maximum order, rounded up as _order_bucket does), and rows
+// move through the pipelined skeleton of lane_scan.cuh (scan_rows_async):
+// tiles of 64 samples a row arrive by asynchronous 16-byte copies two tiles
+// ahead, are restored in place and leave by 16-byte stores, in blocks of
+// one warp so that a fleet step's rows reach every SM.
 //
 // Arithmetic. The TPU has no 64-bit integers, so the Pallas kernel splits
 // each product into int32 limbs; that is exact while |v| < 2^25 and
@@ -32,50 +35,103 @@
 // stored as int32 (wrapping) where the host keeps int64. Shift amounts are
 // clamped to 63, where numpy's would be undefined.
 //
-// Bounds on the H100. Per sample a row reads and writes 4 bytes and does K
-// 64-bit multiply-adds; at K = 8 and 32768 rows the dependent chain of the
-// sum and the 64-bit multiplies bound it, hidden only by the warps in
-// flight (~8 warps per SM at 32768 rows).
+// What bounds it on the H100 (measured: PERF.md). A sample is 4 bytes in, 4
+// out and K 64-bit multiply-adds: at K = 8 and 32768 rows the bytes bound
+// it, if they keep moving while a row's chain runs; the skeleton's ring
+// sees to that. What the design keeps short is the work per sample: a row
+// restores K samples at a time with the window rotating through registers
+// by renaming (no moves), each tap is one IMAD.WIDE (mad.wide.s32: see
+// mad_wide), and where a whole tile lies inside the row's block with a
+// shift of 0..31 (every tile but the first and the last of a FLAC subframe)
+// the prediction's low word is one funnel shift and no per-sample test
+// remains. The chain from one restored sample to the next is then
+// multiply-add, 64-bit add, shift, add; the K - 1 older products do not
+// wait for the newest sample (64-bit wrapping sums are associative, so any
+// order is exact; ptxas sums them as a tree of 3-input adds whichever order
+// the source gives). Tiles that hold a warmup, the block's end or another
+// shift take the general step; tiles of rows that never update (order 0,
+// or past the block) are left as they arrived. With few rows (a fleet
+// step's 7168: one warp on two of every five schedulers) a row's own pace
+// bounds it: one scheduler starts an IMAD.WIDE every ~4 cycles, ~5.6 cycles
+// a tap with its add.
 
 #include "lane_scan.cuh"
 
 namespace {
 
+// acc + a * b in 64 bits, wrapping: one IMAD.WIDE. Written as C++, nvcc
+// widens the loop-invariant coefficients once and then multiplies 64 x 64
+// bits, four instructions a tap.
+__device__ __forceinline__ unsigned long long mad_wide(int a, int b, unsigned long long acc) {
+  unsigned long long d;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(acc));
+  return d;
+}
+
 template <int K>
 struct LpcLane {
-  int w[K];  // w[0] = the newest restored sample
+  int w[K];  // the K newest restored samples; between groups w[0] is the newest
   int c[K];
   int order, block, left, right;
-  int i;  // index of the next sample within the row
 
-  __device__ __forceinline__ int step(int res) {
-    unsigned long long acc = 0;
+  // Restores the K samples at p. Within the group the window rotates by
+  // renaming: before sample s the newest is w[(K - s) % K], and sample s
+  // overwrites the oldest, w[K - 1 - s]; after K samples w[0] is the newest
+  // again. FAST: every sample updates and the shift is right, 0..31;
+  // otherwise samples lo <= s < hi of the group update.
+  template <bool FAST>
+  __device__ __forceinline__ void group(int* p, int lo, int hi) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      acc += static_cast<unsigned long long>(static_cast<long long>(w[j]) * c[j]);
+    for (int n = 0; n < K; n += 4) {
+      const int4 x = *reinterpret_cast<const int4*>(p + n);
+      int r[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int s = n + m;
+        unsigned long long acc = 0;  // oldest first: the newest sample's product comes last
+#pragma unroll
+        for (int j = K - 1; j >= 0; --j) acc = mad_wide(w[(K - s + j) % K], c[j], acc);
+        // the low 32 bits of res + pred: the sum wraps as int32 (unsigned, so
+        // no signed overflow)
+        int v;
+        if (FAST) {
+          const unsigned pred = __funnelshift_r(static_cast<unsigned>(acc),
+                                                static_cast<unsigned>(acc >> 32), right);
+          v = static_cast<int>(static_cast<unsigned>(r[m]) + pred);
+        } else {
+          const long long pred = static_cast<long long>(acc << left) >> right;
+          v = s >= lo && s < hi
+                  ? static_cast<int>(static_cast<unsigned>(r[m]) + static_cast<unsigned>(pred))
+                  : r[m];
+        }
+        w[K - 1 - s] = v;
+        r[m] = v;
+      }
+      *reinterpret_cast<int4*>(p + n) = make_int4(r[0], r[1], r[2], r[3]);
     }
-    const long long pred = static_cast<long long>(acc << left) >> right;
-    const bool upd = order > 0 && i >= order && i < block;
-    // the low 32 bits of res + pred: the sum wraps as int32 (unsigned, so no
-    // signed overflow)
-    const int v = upd ? static_cast<int>(static_cast<unsigned>(res) +
-                                         static_cast<unsigned>(pred))
-                      : res;
-#pragma unroll
-    for (int j = K - 1; j > 0; --j) w[j] = w[j - 1];
-    w[0] = v;
-    ++i;
-    return v;
+  }
+
+  // One tile of the row, in place: row[s] is sample t0 + s.
+  __device__ __forceinline__ void tile(int* row, long long t0) {
+    if (order <= 0 || t0 >= block) return;  // no sample updates, now or later
+    const int lo = static_cast<int>(min(max(order - t0, 0LL), 1LL * aukit::ASYNC_TILE));
+    const int hi = static_cast<int>(min(block - t0, 1LL * aukit::ASYNC_TILE));
+    if (lo == 0 && hi == aukit::ASYNC_TILE && left == 0 && right < 32) {
+      for (int g = 0; g < aukit::ASYNC_TILE; g += K) group<true>(row + g, 0, 0);
+    } else {
+#pragma unroll 1
+      for (int g = 0; g < aukit::ASYNC_TILE; g += K) group<false>(row + g, lo - g, hi - g);
+    }
   }
 };
 
 template <int K>
-__global__ void __launch_bounds__(aukit::SCAN_LANES)
+__global__ void __launch_bounds__(aukit::ASYNC_LANES)
 lpc_restore_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__ orders,
                    const int32_t* __restrict__ shifts, const int32_t* __restrict__ blocks,
                    const int32_t* __restrict__ coefs, int32_t* __restrict__ out, int lanes,
-                   long long T) {
-  const int lane = blockIdx.x * aukit::SCAN_LANES + threadIdx.x;
+                   long long T, bool wide) {
+  const int lane = blockIdx.x * aukit::ASYNC_LANES + threadIdx.x;
   LpcLane<K> st{};
   if (lane < lanes) {
     st.order = orders[lane];
@@ -86,16 +142,22 @@ lpc_restore_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__
 #pragma unroll
     for (int j = 0; j < K; ++j) st.c[j] = coefs[static_cast<long long>(lane) * K + j];
   }
-  aukit::scan_rows(vals, out, lanes, T, st);
+  aukit::scan_rows_async(vals, out, lanes, T, wide, st);
 }
 
 template <int K>
 void launch(const void* vals, const void* orders, const void* shifts, const void* blocks,
             const void* coefs, void* out, int lanes, long long T, cudaStream_t stream) {
-  lpc_restore_kernel<K><<<aukit::scan_blocks(lanes), aukit::SCAN_LANES, 0, stream>>>(
+  // 16-byte copies need rows on 16-byte boundaries
+  const bool wide = T % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // 32768 rows are 7.8 blocks per SM: their rings need the SM's whole shared memory
+  cudaFuncSetAttribute(lpc_restore_kernel<K>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  lpc_restore_kernel<K><<<aukit::async_blocks(lanes), aukit::ASYNC_LANES, 0, stream>>>(
       static_cast<const int32_t*>(vals), static_cast<const int32_t*>(orders),
       static_cast<const int32_t*>(shifts), static_cast<const int32_t*>(blocks),
-      static_cast<const int32_t*>(coefs), static_cast<int32_t*>(out), lanes, T);
+      static_cast<const int32_t*>(coefs), static_cast<int32_t*>(out), lanes, T, wide);
 }
 
 }  // namespace

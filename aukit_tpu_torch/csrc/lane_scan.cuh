@@ -1,19 +1,38 @@
-// Shared skeleton of the lane-recurrence kernels (adpcm.cu, qoa.cu, flac.cu,
+// Shared skeletons of the lane-recurrence kernels (adpcm.cu, qoa.cu, flac.cu,
 // iir.cu): one thread owns one lane and runs its recurrence over every
 // sample of the call, with the lane's state in registers.
 //
 // Layout. The wrappers keep the JAX wrappers' lane-major layout: input
 // In[L, T], output Out[L, T], both row-major. A thread reading its own row
-// would make every warp load touch 32 rows, so a block of SCAN_LANES lanes
-// stages SCAN_TILE samples of each of its rows in shared memory first (a
-// warp loads consecutive elements of one row), runs the recurrence out of
-// shared memory, and writes the results back through a second shared tile,
-// again along the rows. Every tile row is padded by 4 bytes, so with
-// 64-sample tiles a row is an odd number of 4-byte words (17 for bytes, 33
-// for int16, 65 for int32 and float) and the per-lane row accesses hit 32
-// distinct banks. Building
-// the input time-major in the engine instead would have cost an extra
-// transpose pass over device memory per step on the torch side.
+// would make every warp load touch 32 rows, so a block stages a tile of each
+// of its rows in shared memory (a warp loads consecutive elements of one
+// row), runs the recurrence out of shared memory, and writes the results
+// back along the rows. Building the input time-major in the engine instead
+// would have cost an extra transpose pass over device memory per step on
+// the torch side.
+//
+// Two skeletons:
+//   - scan_rows, the first one: one input and one output tile per block of
+//     SCAN_LANES lanes; load, barrier, compute, barrier, store, barrier,
+//     4 bytes a thread and instruction, nothing asynchronous. Every tile row
+//     is padded by 4 bytes, so with 64-sample tiles a row is an odd number of
+//     4-byte words (17 for bytes, 33 for int16, 65 for int32 and float) and
+//     the per-lane row accesses hit 32 distinct banks. Its kernels reach
+//     7-34% of their byte bounds: between the barriers a block has no bytes
+//     in flight, and at a few thousand rows nothing hides that. adpcm.cu,
+//     qoa.cu and iir.cu still use it; each moves to scan_rows_async in its
+//     own change, and the last one deletes scan_rows.
+//   - scan_rows_async, the pipelined one (flac.cu): a ring of ASYNC_STAGES
+//     tiles per block of ASYNC_LANES lanes, filled by asynchronous 16-byte
+//     copies (cp.async) two tiles ahead of the one being computed, which is
+//     updated in place and then stored with 16-byte stores, so a block always
+//     has loads and stores in flight while it computes. A tile row is 68
+//     words, 4 more than a multiple of 32: rows start on 16-byte boundaries
+//     and a quarter warp's 16-byte accesses cover all 32 banks, whether eight
+//     lanes touch their own rows or eight threads run along one row. A block
+//     is one warp, so 7168 rows (one FLAC fleet step) make 224 blocks for
+//     the card's 132 SMs, and 32768 rows 7.8 blocks per SM, whose 26 KB rings
+//     fit the SM's shared memory together.
 //
 // Index arithmetic is 64-bit: the engine's QOA fleet alone hands one call
 // 147,456 lanes x 5120 samples.
@@ -87,6 +106,130 @@ __device__ __forceinline__ void scan_rows(const In* __restrict__ in,
       if (c < nt) out[static_cast<long long>(lane0 + r) * T + t0 + c] = out_tile[r * OUT_STRIDE + c];
     }
     __syncthreads();  // the next tile overwrites both shared tiles
+  }
+}
+
+// -- the pipelined skeleton ---------------------------------------------------------
+
+constexpr int ASYNC_LANES = 32;   // threads (= lanes) per block: one warp
+constexpr int ASYNC_TILE = 64;    // samples per lane per tile
+constexpr int ASYNC_STAGES = 3;   // tiles in the ring: one computing, two in flight
+constexpr int ASYNC_STRIDE = ASYNC_TILE + 4;  // 4-byte words per tile row
+constexpr int ASYNC_CHUNKS = ASYNC_TILE / 4;  // 16-byte chunks per tile row
+
+inline int async_blocks(int lanes) { return (lanes + ASYNC_LANES - 1) / ASYNC_LANES; }
+
+// An asynchronous copy of WIDTH 4-byte elements (4: 16 bytes, or 1) from
+// device to shared memory.
+template <int WIDTH>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (WIDTH == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(gmem) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(gmem) : "memory");
+  }
+}
+
+// Starts the copies of nt elements of each of nlanes rows into a tile, WIDTH
+// elements a copy. Consecutive threads take consecutive pieces of one row:
+// a thread keeps its column and walks down the rows, so the addresses of a
+// pass differ from the last pass's by constants.
+template <int WIDTH, typename Elem>
+__device__ __forceinline__ void fetch_tile(Elem* tile, const Elem* __restrict__ src, long long T,
+                                           int nlanes, int nt) {
+  constexpr int PER_ROW = ASYNC_TILE / WIDTH;            // copies per row
+  constexpr int ROWS = ASYNC_LANES / PER_ROW;            // rows per pass (wide: 2)
+  if (WIDTH == 4) {
+    const int c = (threadIdx.x % PER_ROW) * WIDTH, r0 = threadIdx.x / PER_ROW;
+    if (c >= nt) return;
+#pragma unroll
+    for (int k = 0; k < ASYNC_LANES / ROWS; ++k) {
+      const int r = r0 + k * ROWS;
+      if (r < nlanes) cp_async<WIDTH>(tile + r * ASYNC_STRIDE + c, src + r * T + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nlanes * ASYNC_TILE; i += ASYNC_LANES) {
+      const int r = i / ASYNC_TILE, c = i % ASYNC_TILE;
+      if (c < nt) cp_async<WIDTH>(tile + r * ASYNC_STRIDE + c, src + r * T + c);
+    }
+  }
+}
+
+// The way back: nt elements of each of nlanes rows of a tile to device
+// memory, 16 bytes a store where ``wide``.
+template <typename Elem>
+__device__ __forceinline__ void store_tile(const Elem* tile, Elem* __restrict__ dst, long long T,
+                                           int nlanes, int nt, bool wide) {
+  if (wide) {
+    constexpr int ROWS = ASYNC_LANES / ASYNC_CHUNKS;
+    const int c = (threadIdx.x % ASYNC_CHUNKS) * 4, r0 = threadIdx.x / ASYNC_CHUNKS;
+    if (c >= nt) return;
+#pragma unroll
+    for (int k = 0; k < ASYNC_LANES / ROWS; ++k) {
+      const int r = r0 + k * ROWS;
+      if (r < nlanes) {
+        *reinterpret_cast<int4*>(dst + r * T + c) =
+            *reinterpret_cast<const int4*>(tile + r * ASYNC_STRIDE + c);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < nlanes * ASYNC_TILE; i += ASYNC_LANES) {
+      const int r = i / ASYNC_TILE, c = i % ASYNC_TILE;
+      if (c < nt) dst[r * T + c] = tile[r * ASYNC_STRIDE + c];
+    }
+  }
+}
+
+// Runs lane.tile(row, t0) over this thread's lane, tile by tile: row points
+// at the lane's ASYNC_TILE elements of the tile that starts at sample t0
+// (16-byte aligned; elements past T are undefined and not stored), which the
+// lane updates in place. Elem is a 4-byte type. Every thread of the block
+// must call it (it synchronises the block); threads past the last lane copy
+// but do not compute. Rows on 16-byte boundaries (T % 4 == 0 and both bases
+// aligned: ``wide``) move 16 bytes a copy, any others 4.
+template <typename Elem, typename Lane>
+__device__ __forceinline__ void scan_rows_async(const Elem* __restrict__ in,
+                                                Elem* __restrict__ out, int lanes, long long T,
+                                                bool wide, Lane& lane) {
+  static_assert(sizeof(Elem) == 4, "tiles are rows of 4-byte words");
+  __shared__ int4 ring[ASYNC_STAGES][ASYNC_LANES * ASYNC_STRIDE / 4];
+
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * ASYNC_LANES;
+  const int nlanes = min(ASYNC_LANES, lanes - lane0);
+  const long long ntiles = (T + ASYNC_TILE - 1) / ASYNC_TILE;
+
+  // one commit group per tile, also past the end, so the groups count alike
+  const auto fetch = [&](long long n, int stage) {
+    if (n < ntiles) {
+      const long long t0 = n * ASYNC_TILE;
+      const int nt = static_cast<int>(min(static_cast<long long>(ASYNC_TILE), T - t0));
+      Elem* tile = reinterpret_cast<Elem*>(ring[stage]);
+      const Elem* src = in + static_cast<long long>(lane0) * T + t0;
+      if (wide) {
+        fetch_tile<4>(tile, src, T, nlanes, nt);
+      } else {
+        fetch_tile<1>(tile, src, T, nlanes, nt);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  fetch(0, 0);
+  fetch(1, 1);
+  int stage = 0;  // of tile n
+  for (long long n = 0; n < ntiles; ++n) {
+    const long long t0 = n * ASYNC_TILE;
+    const int nt = static_cast<int>(min(static_cast<long long>(ASYNC_TILE), T - t0));
+    Elem* tile = reinterpret_cast<Elem*>(ring[stage]);
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // tile n has landed
+    __syncthreads();  // for every thread; and tile n - 1 is stored: its stage is free
+    fetch(n + 2, (stage + 2) % ASYNC_STAGES);
+    if (tid < nlanes) lane.tile(tile + tid * ASYNC_STRIDE, t0);
+    __syncthreads();
+    store_tile(tile, out + static_cast<long long>(lane0) * T + t0, T, nlanes, nt, wide);
+    stage = (stage + 1) % ASYNC_STAGES;
   }
 }
 

@@ -184,6 +184,15 @@ def tone_correlation(decoded: torch.Tensor, levels: torch.Tensor) -> torch.Tenso
     return (x * y).sum(1) / (x.norm(dim=1) * y.norm(dim=1))
 
 
+def load_test_module(stem: str):
+    """tests/<stem>.py by path: on the card's machine ``tests`` may name
+    another installed package."""
+    spec = importlib.util.spec_from_file_location(f"aukit_{stem}", ROOT / "tests" / f"{stem}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -289,6 +298,68 @@ def phase_kernel_vs_plain() -> dict:
     return errs
 
 
+def phase_redesigned_kernel_paths() -> dict:
+    """Every path of the kernels redesigned for Hopper, (b) and (g), against
+    their plain versions on the same CUDA tensors, max |error| 0, on the
+    cases of tests/torch_kernel_cases.py: for (b) the table's 256 lowpass
+    words, states outside their ranges (the division path), odd and short
+    rows, ragged tiles and lanes, a misaligned base, gains past the rails and
+    to +-inf and NaN, masked lanes whose state advances; kernel (a), which
+    shares the staging, on the same bytes; for (g) rows on and off the
+    16-byte grid, every tap count, wide and negative shifts, ragged blocks.
+    Then the ramp's 64-bit time (more than 2^24 samples a lane) against the
+    plain epilogue over kernel (a)'s raw samples: the plain decode loop
+    would take hours there. Returns max |error| by kernel."""
+    cases = load_test_module("torch_kernel_cases")
+    errs = {"dfpwm_decode": 0, "dfpwm_decode_dsp": 0, "lpc_restore": 0}
+    names = []
+    for name, data, st, mask, gain in cases.dsp_cases("cuda"):
+        for key, got, want in (
+                ("dfpwm_decode_dsp", kc.dfpwm_decode_dsp_kernel(data, st, ALPHA_48K, mask, gain),
+                 kc.dfpwm_decode_dsp_ref(data, st, ALPHA_48K, mask, gain)),
+                ("dfpwm_decode", kc.dfpwm_decode_kernel(data, st), kc.dfpwm_decode_ref(data, st))):
+            (ok_o, e_o), (ok_s, e_s) = same(got[0], want[0]), same(got[1], want[1])
+            errs[key] = max(errs[key], e_o, e_s)
+            check(ok_o and ok_s, f"{key} kernel == plain on case {name}")
+            if key == "dfpwm_decode" and name.startswith("every_lowpass_word"):
+                check(len(torch.unique(got[0])) == 256, "the bytes reach all 256 lowpass words")
+        names.append(name)
+    say("kernel_vs_plain_paths", kernel="dfpwm_decode_dsp", also="dfpwm_decode",
+        cases=json.dumps(names), out_equal=True, state_equal=True)
+    names = []
+    for name, args, K in cases.lpc_cases("cuda"):
+        ok, err = same(kg.lpc_restore_kernel(*args, K), kg.lpc_restore_ref(*args, K))
+        errs["lpc_restore"] = max(errs["lpc_restore"], err)
+        check(ok, f"lpc_restore kernel == plain on case {name}")
+        names.append(name)
+    say("kernel_vs_plain_paths", kernel="lpc_restore", cases=json.dumps(names), out_equal=True)
+
+    # the ramp beyond 2^24 samples a lane
+    rng = np.random.default_rng(52)
+    lanes, nbytes = 3, (1 << 21) + 8
+    data = torch.tensor(rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8), device="cuda")
+    st = random_state(rng, lanes)
+    gain = (torch.tensor([0.9, 1.2, 0.4], device="cuda"),
+            torch.tensor([1.5e-8, -3e-8, 2e-8], device="cuda"))
+
+    def raw_by_kernel(bytes_u8, state):  # decode_samples' contract: ([T, L] int32, state)
+        raw, new = kc.dfpwm_decode_kernel(bytes_u8, state)
+        return raw.t().to(torch.int32), new
+
+    (out, new), ms = timed(lambda: kc.dfpwm_decode_dsp_kernel(data, st, ALPHA_48K, None, gain))
+    plain_loop, kc.decode_samples = kc.decode_samples, raw_by_kernel
+    try:
+        ref, ref_new = kc.dfpwm_decode_dsp_ref(data, st, ALPHA_48K, None, gain)
+    finally:
+        kc.decode_samples = plain_loop
+    (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(new, ref_new)
+    errs["dfpwm_decode_dsp"] = max(errs["dfpwm_decode_dsp"], e_o, e_s)
+    say("kernel_vs_plain_paths", kernel="dfpwm_decode_dsp", case="ramp_beyond_2^24_samples",
+        lanes=lanes, bytes=nbytes, out_equal=ok_o, state_equal=ok_s, ms=round(ms, 2))
+    check(ok_o and ok_s, "dfpwm_decode_dsp kernel == plain epilogue beyond 2^24 samples")
+    return errs
+
+
 def phase_kernel_vs_plain_main_shapes(tones: torch.Tensor) -> tuple[dict, dict]:
     """Each kernel against its plain version at the shapes the main path
     gives it, on the bytes the main path decodes, every lane compared: the
@@ -317,6 +388,9 @@ def phase_kernel_vs_plain_main_shapes(tones: torch.Tensor) -> tuple[dict, dict]:
                              lambda: kc.dfpwm_decode_ref(half, half_state),
                              lambda: kc.dfpwm_decode_kernel(half, half_state))
     errs, times = {}, {}
+    gained_ms = event_ms(lambda: kc.dfpwm_decode_dsp_kernel(tones, state, ALPHA_48K, live, gain), 5)
+    say("time", kernel="dfpwm_decode_dsp_gain", lanes=lanes, bytes=tones.shape[1],
+        ms=round(gained_ms, 4))
     for name, (kernel, plain, as_main_path) in cases.items():
         (out, st), ms = timed(kernel)
         (ref, ref_st), plain_ms = timed(plain)
@@ -1004,15 +1078,13 @@ FLAC_N = 4096  # block size (bench.py:370; flac -5)
 FLAC_CHECK_LANES = 64
 LPC8 = [120, -60, 30, -15, 8, -4, 2, -1]  # bench.py:371: order 8, shift 9
 LPC_ROWS = 32768  # kernel (g)'s profile shape (flac_pallas.py:47-49): 32768 rows x 4096
+LPC_FLEET_ROWS = 7168  # the restore batch of one step of the 2048-lane fleet
 
 
 def load_fixtures():
     """tests/fixtures.py (numpy and struct only), by path: on the card's
     machine ``tests`` may name another installed package."""
-    spec = importlib.util.spec_from_file_location("aukit_fixtures", ROOT / "tests" / "fixtures.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_test_module("fixtures")
 
 
 def past8(sig: np.ndarray) -> np.ndarray:
@@ -1451,6 +1523,14 @@ def phase_flac_times() -> dict:
                              LPC_ROWS * FLAC_N * 8)
         del args
         torch.cuda.empty_cache()
+    # (g) at the shape one step of the 2048-lane fleet launches it
+    args = lpc_bench_args(rng, LPC_FLEET_ROWS, FLAC_N)
+    kg.lpc_restore_kernel(*args)
+    ms = min(event_ms(lambda: kg.lpc_restore_kernel(*args), 10) for _ in range(2))
+    say("time", kernel="lpc_restore_fleet_step", rows=LPC_FLEET_ROWS, samples=FLAC_N,
+        ms=round(ms, 4), gsamples_per_s=round(LPC_FLEET_ROWS * FLAC_N / ms / 1e6, 2))
+    timing("lpc_restore_fleet_step", ms, float("nan"),
+           LPC_FLEET_ROWS * FLAC_N * lpc_ops_per_sample(8), LPC_FLEET_ROWS * FLAC_N * 8)
     return times
 
 
@@ -1823,6 +1903,7 @@ def main() -> None:
     phase_build()
     phase_golden()
     errs = phase_kernel_vs_plain()
+    path_errs = phase_redesigned_kernel_paths()
     errs.update(phase_block_kernel_vs_plain())
     tones_u8, levels, encode_plain_ms = encoded_tones(FULL_LANES, 1.0, seed=3)
     say("encode", lanes=FULL_LANES, bytes=tones_u8.shape[1], plain_ms=round(encode_plain_ms, 2))
@@ -1848,7 +1929,7 @@ def main() -> None:
     phase_encode_engines()
     transcode_launches = phase_transcode()
     fx = load_fixtures()
-    for name, err in phase_flac_kernel_vs_plain().items():
+    for name, err in [*phase_flac_kernel_vs_plain().items(), *path_errs.items()]:
         errs[name] = max(errs.get(name, 0), err)
     phase_flac_engines(fx)
     t0 = time.perf_counter()

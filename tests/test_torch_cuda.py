@@ -32,6 +32,21 @@ pytestmark = [pytest.mark.cuda, needs_cuda]
 ALPHA_48K = float(1.0 - np.exp(-0.5 * 2.0 * np.pi))
 
 
+def load_sibling(stem):
+    """tests/<stem>.py by path: on a machine without this repository's
+    conftest, ``tests`` may name another installed package."""
+    spec = importlib.util.spec_from_file_location(stem, Path(__file__).parent / f"{stem}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+kernel_cases = load_sibling("torch_kernel_cases")
+# the case names, from the builders run on the CPU (cheap: a few hundred lanes)
+DSP_CASES = [c[0] for c in kernel_cases.dsp_cases("cpu")]
+LPC_CASES = [c[0] for c in kernel_cases.lpc_cases("cpu")]
+
+
 def random_state(rng, lanes, device):
     leaves = (rng.integers(-128, 128, lanes), rng.integers(8, 1024, lanes),
               rng.integers(0, 2, lanes), rng.integers(-128, 128, lanes),
@@ -75,6 +90,34 @@ def test_decode_dsp_kernel_matches_plain(with_gain, with_mask):
         out, st = dfpwm_decode_dsp_kernel(data, st, ALPHA_48K, mask, gain)
         ref, ref_st = dfpwm_decode_dsp_ref(data, ref_st, ALPHA_48K, mask, gain)
         assert_same(out, st, ref, ref_st)
+
+
+@pytest.mark.parametrize("name", DSP_CASES)
+def test_decode_dsp_kernel_paths_match_plain(name):
+    """Every path of the redesigned fused kernel (the table's 256 lowpass
+    words, states outside their ranges, odd and short rows, ragged tiles, a
+    misaligned base, gains past the rails and to +-inf and NaN, masked
+    lanes) and kernel (a) on the same bytes: outputs and state bit-equal."""
+    _, data, st, mask, gain = next(c for c in kernel_cases.dsp_cases("cuda") if c[0] == name)
+    out, new = dfpwm_decode_dsp_kernel(data, st, ALPHA_48K, mask, gain)
+    ref, ref_new = dfpwm_decode_dsp_ref(data, st, ALPHA_48K, mask, gain)
+    assert_same(out, new, ref, ref_new)
+    raw, raw_new = dfpwm_decode_kernel(data, st)
+    ref, ref_new = dfpwm_decode_ref(data, st)
+    assert_same(raw, raw_new, ref, ref_new)
+    if name.startswith("every_lowpass_word"):
+        assert len(torch.unique(raw)) == 256
+
+
+@pytest.mark.parametrize("name", LPC_CASES)
+def test_lpc_restore_kernel_paths_match_plain(name):
+    """Every path of the pipelined restore kernel: rows on and off the
+    16-byte grid, a misaligned base, fewer rows than a block, every tap
+    count, wide and negative shifts, ragged blocks, orders beyond the taps."""
+    _, args, K = next(c for c in kernel_cases.lpc_cases("cuda") if c[0] == name)
+    got = lpc_restore_kernel(*args, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lpc_restore_ref(*args, K))
 
 
 def test_decode_kernel_golden_vectors():
@@ -235,22 +278,9 @@ def test_block_fleet_engine_on_cuda_matches_cpu():
 
 
 def lpc_rows(rng, rows, T, max_order):
-    """Restore arguments on the card: random orders up to ``max_order``,
-    shifts 0, 15, 17, 20, 31 and negative, ragged blocks, warmup samples
-    and residuals as test_flac_lpc_pallas_matches_int64 makes them."""
-    orders = rng.integers(0, max_order + 1, rows)
-    orders[0] = max_order
-    shifts = rng.choice([0, 5, 9, 12, 15, 17, 20, 31, -1, -3, 14], rows)
-    blocks = rng.integers(max(1, T // 2), T + 1, rows)
-    coefs = np.zeros((rows, 32), np.int64)
-    vals = rng.integers(-2000, 2000, (rows, T))
-    for r in range(rows):
-        coefs[r, :orders[r]] = rng.integers(-(1 << 14), (1 << 14) + 1, orders[r])
-        vals[r, :orders[r]] = rng.integers(-30000, 30000, orders[r])
-    neg = shifts < 0
-    coefs[neg] //= 1 << 12
-    vals[neg] = np.clip(vals[neg], -3, 3)
-    return tuple(cuda_i32(a) for a in (vals, orders, shifts, blocks, coefs))
+    """Restore arguments on the card (torch_kernel_cases.lpc_rows: random
+    orders up to ``max_order``, shifts 0..31 and negative, ragged blocks)."""
+    return tuple(cuda_i32(a) for a in kernel_cases.lpc_rows(rng, rows, T, max_order))
 
 
 @pytest.mark.parametrize("rows,T,max_order", [(1, 1, 1), (65, 70, 3), (130, 300, 8),
@@ -281,11 +311,7 @@ def test_flac_fleet_on_cuda_matches_cpu():
     checkpoints bit-equal, and kernels (g) and (h) ran."""
     from aukit_tpu_torch import FlacFleet
 
-    # by path: on a machine without this repository's conftest, ``tests`` may
-    # name another installed package
-    spec = importlib.util.spec_from_file_location("fixtures", Path(__file__).parent / "fixtures.py")
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
+    fixtures = load_sibling("fixtures")
     rng = np.random.default_rng(6)
     frames = []
     for k in range(6):

@@ -131,6 +131,47 @@ def test_decode_dsp_ref_matches_pallas_interpret(with_gain):
         assert_state_equal(jst, pst)
 
 
+@pytest.mark.parametrize("case", ["lowpass_outside", "charge_outside", "strength_outside",
+                                  "odd_bytes", "one_byte", "ramp_over_the_rails"])
+def test_decode_dsp_ref_edges_match_pallas_interpret(case):
+    """What the CUDA kernel's branches must equal: the plain version against
+    dfpwm_decode_dsp_pallas from states whose words lie outside their ranges
+    (the kernel divides there instead of looking up), with odd byte counts
+    (its 4-byte stores and ragged tiles) and with a ramp that drives samples
+    past both rails (its saturating conversion). int8 outputs and state
+    bit-equal."""
+    rng = np.random.default_rng(40)
+    lanes, nbytes = 6, 40
+    st_np = random_state(rng, lanes)
+    gain = None
+    if case == "lowpass_outside":
+        st_np[4] = np.array([-100000, -4000, -129, 128, 300, 90000], np.int32)
+    elif case == "charge_outside":
+        st_np[0] = np.array([-90000, -129, 128, 300, 4000, 127], np.int32)
+        st_np[3] = -st_np[0]
+    elif case == "strength_outside":
+        st_np[1] = np.array([-3, 0, 1024, 5000, 7, 1023], np.int32)
+    elif case == "odd_bytes":
+        nbytes = 37
+    elif case == "one_byte":
+        nbytes = 1
+    elif case == "ramp_over_the_rails":
+        gain = (np.array([300.0, -300.0, 0.5, -0.5, 2.0, 1.0], np.float32),
+                np.array([-2.0, 2.0, 1.5, -1.5, 0.01, -0.01], np.float32))
+    data = rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8)
+    data[0, :12], data[1, :12] = 0xFF, 0x00  # to the rails
+    mask = np.array([True, True, False, True, True, True])
+    want, jst = kp.dfpwm_decode_dsp_pallas(data, JaxState(*map(jnp.asarray, st_np)), ALPHA_48K,
+                                           mask=mask, gain=gain, interpret=True)
+    got, pst = dfpwm_decode_dsp_kernel(
+        torch.tensor(data), dfpwm_state_from_numpy(st_np), ALPHA_48K, mask=torch.tensor(mask),
+        gain=None if gain is None else tuple(map(torch.tensor, gain)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert_state_equal(jst, pst)
+    if case == "ramp_over_the_rails":
+        assert got.min() == -128 and got.max() == 127
+
+
 def test_cpu_tensors_take_the_plain_versions():
     data = torch.zeros((2, 4), dtype=torch.uint8)
     launches = (dfpwm_decode_kernel.launches, dfpwm_decode_dsp_kernel.launches)

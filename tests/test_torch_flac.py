@@ -195,6 +195,43 @@ def test_lpc_restore_ref_matches_int64_and_pallas(max_order):
     assert inside >= 3
 
 
+@pytest.mark.parametrize("T,max_order", [(70, 3), (131, 8), (257, 13), (66, 32)])
+def test_lpc_restore_ref_rows_off_the_16_byte_grid(T, max_order):
+    """Rows whose length is not a multiple of 4 samples (the CUDA kernel
+    then copies 4 bytes at a time) with ragged blocks and shifts of every
+    sign: the plain version equals the Pallas kernel in interpret mode on
+    every lane, and the int64 oracle inside the limb kernel's domain."""
+    rng = np.random.default_rng(T)
+    L = 11
+    orders = rng.integers(0, max_order + 1, L).astype(np.int64)
+    orders[0] = max_order
+    shifts = np.array([0, -1, 9, -3, 15, 17, -2, 31, 5, -1, 14], np.int64)
+    blocks = rng.integers(T // 2, T + 1, L).astype(np.int64)
+    coefs = np.zeros((L, 32), np.int64)
+    vals = rng.integers(-2000, 2000, (L, T)).astype(np.int64)
+    for lane in range(L):
+        o = orders[lane]
+        coefs[lane, :o] = rng.integers(-(1 << 14), (1 << 14) + 1, o)
+        vals[lane, :o] = rng.integers(-30000, 30000, o)
+        if shifts[lane] < 0:
+            coefs[lane] //= 1 << 12
+            vals[lane] = np.clip(vals[lane], -3, 3)
+    got = flac_cuda.lpc_restore_kernel(i32(vals), i32(orders), i32(shifts), i32(blocks),
+                                       i32(coefs)).numpy()
+    pallas = np.asarray(fp.lpc_restore_pallas(vals, orders, shifts, blocks, coefs,
+                                              interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    ref = jax_flac.restore_lpc_batch(vals.copy(), coefs, shifts, orders)
+    inside = 0
+    for lane in range(L):
+        b = int(blocks[lane])
+        if np.abs(ref[lane, :b]).max() < fp.MAX_ABS_SAMPLE:
+            np.testing.assert_array_equal(got[lane, :b], ref[lane, :b], err_msg=f"lane {lane}")
+            inside += 1
+    assert inside >= 3
+    assert (shifts < 0).sum() >= 4 and T % 4
+
+
 def test_lpc_restore_ref_typical_stream():
     """Order-8 lane set shaped like a real file (uniform blocks)."""
     rng = np.random.default_rng(12)

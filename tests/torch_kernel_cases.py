@@ -1,0 +1,179 @@
+"""Inputs that reach every path of the port's redesigned CUDA kernels: the
+fused DFPWM decode + DSP (``csrc/dfpwm.cu``) and the FLAC LPC restore
+(``csrc/flac.cu`` on ``scan_rows_async``). One definition for the card tests
+(``tests/test_torch_cuda.py``) and for ``chip_smoke.py``, which both load
+this file by path and hold each case's kernel output against the plain
+version, max |error| 0. Imports numpy and torch only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from aukit_tpu_torch.codecs.dfpwm import DfpwmState
+
+
+def _state(leaves, device) -> DfpwmState:
+    return DfpwmState(*(torch.tensor(np.asarray(a, np.int32), device=device) for a in leaves))
+
+
+def tame_state(rng, lanes: int, device) -> DfpwmState:
+    """A valid mid-stream decoder state: every word in its range."""
+    return _state((rng.integers(-128, 128, lanes), rng.integers(8, 1024, lanes),
+                   rng.integers(0, 2, lanes), rng.integers(-128, 128, lanes),
+                   rng.integers(-128, 128, lanes)), device)
+
+
+def wild_state(rng, lanes: int, device) -> DfpwmState:
+    """States a caller may hand over though no stream produces them: every
+    fourth lane has a lowpass word outside [-128, 127], the next a charge
+    and a previous charge outside it, the next a strength outside [0, 1023];
+    the fourth is tame. Magnitudes keep strength * (target - charge) inside
+    int32."""
+    q, s, lb, pq, lp = (a.copy() for a in (
+        rng.integers(-128, 128, lanes), rng.integers(8, 1024, lanes), rng.integers(0, 2, lanes),
+        rng.integers(-128, 128, lanes), rng.integers(-128, 128, lanes)))
+    kind = np.arange(lanes) % 4
+    far = rng.choice([-100000, -4000, -129, 128, 300, 90000], lanes)
+    lp[kind == 0] = far[kind == 0]
+    q[kind == 1] = far[kind == 1]
+    pq[kind == 1] = -far[kind == 1]
+    s[kind == 2] = rng.choice([-3, 1024, 5000], lanes)[kind == 2]
+    return _state((q, s, lb, pq, lp), device)
+
+
+def _bytes(rng, lanes: int, nbytes: int, device) -> torch.Tensor:
+    return torch.tensor(rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8), device=device)
+
+
+def _gain(g0, slope, device):
+    return (torch.tensor(np.asarray(g0, np.float32), device=device),
+            torch.tensor(np.asarray(slope, np.float32), device=device))
+
+
+def rail_bytes(rng, lanes: int, nbytes: int, device) -> torch.Tensor:
+    """Bytes that walk the lowpass word over all of [-128, 127]: 48 bytes of
+    ones (even lanes) or zeros (odd lanes) drive it to a rail, random bytes
+    bring it back."""
+    data = rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8)
+    data[0::2, :48] = 0xFF
+    data[1::2, :48] = 0x00
+    return torch.tensor(data, device=device)
+
+
+def dsp_cases(device="cuda", nonfinite: bool = True):
+    """-> (name, bytes u8[L, B], state, mask or None, gain or None) of the
+    fused kernel. ``nonfinite``: also gains that overflow to +-inf and NaN
+    gains (what a cast of NaN gives is the platform's: compare on one device
+    only)."""
+    rng = np.random.default_rng(50)
+    for with_gain in (False, True):
+        # the 256 lowpass words: one lane per incoming word, and bytes that
+        # walk every lane over both rails (the table's 256 entries)
+        lanes = 256
+        st = tame_state(rng, lanes, device)
+        st = DfpwmState(st.charge, st.strength, st.previous_bit, st.previous_charge,
+                        torch.arange(-128, 128, dtype=torch.int32, device=device))
+        gain = _gain(rng.uniform(0.5, 1.5, lanes), rng.uniform(-1, 1, lanes) / 1000,
+                     device) if with_gain else None
+        yield f"every_lowpass_word_gain={with_gain}", rail_bytes(rng, lanes, 128, device), st, \
+            None, gain
+    # incoming words outside their ranges (the division path), lanes not a
+    # multiple of the block, an odd byte count with a ragged last tile, a
+    # lane mask whose dead lanes' state still advances
+    lanes = 300
+    mask = torch.tensor(rng.random(lanes) < 0.7, device=device)
+    for with_gain in (False, True):
+        gain = _gain(rng.uniform(0.2, 1.8, lanes), rng.uniform(-1, 1, lanes) / 600,
+                     device) if with_gain else None
+        yield (f"wild_state_odd_bytes_gain={with_gain}", _bytes(rng, lanes, 77, device),
+               wild_state(rng, lanes, device), mask, gain)
+    # row lengths: one byte; 16 (16-byte loads, a ragged tile); 34 (even, not
+    # a multiple of 16: byte loads, 16-byte stores); 48, 96 (whole tiles)
+    for lanes, nbytes in ((1, 1), (3, 16), (70, 34), (65, 48), (130, 96), (5, 7)):
+        yield (f"shape_{lanes}x{nbytes}", _bytes(rng, lanes, nbytes, device),
+               tame_state(rng, lanes, device), None, None)
+    # a base that is not 16-byte aligned under a row length that is
+    lanes, nbytes = 9, 64
+    flat = _bytes(rng, 1, lanes * nbytes + 1, device).reshape(-1)
+    yield ("misaligned_base", flat[1:].view(lanes, nbytes), tame_state(rng, lanes, device), None,
+           None)
+    # a gain that drives samples past both rails, at rest and as a ramp
+    lanes = 128
+    g0 = np.where(np.arange(lanes) % 2 == 0, 1.0, -1.0) * rng.uniform(0.5, 400, lanes)
+    yield ("gain_past_the_rails", rail_bytes(rng, lanes, 64, device), tame_state(rng, lanes, device),
+           None, _gain(g0, rng.uniform(-2, 2, lanes), device))
+    if nonfinite:
+        # +-3e38 overflow to +-inf in the ramp or at the int8 scaling, and
+        # 0 * inf is NaN there. A gain that is itself infinite is left out:
+        # the plain ramp (fma_ref's round-to-odd step) is exact for finite
+        # operands only.
+        special = np.array([np.nan, 3e38, -3e38, 1e30, -1e30, 1.0, 0.0, -0.0], np.float32)
+        g0 = special[np.arange(lanes) % 8]
+        slope = special[(np.arange(lanes) // 8) % 8]
+        yield ("gain_inf_nan", rail_bytes(rng, lanes, 64, device), tame_state(rng, lanes, device),
+               None, _gain(g0, slope, device))
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.int32), device=device)
+
+
+def lpc_rows(rng, rows: int, T: int, max_order: int, shifts=None):
+    """Restore arguments as numpy arrays: random orders up to ``max_order``,
+    shifts 0..31 and negative (or the given choice), ragged blocks, warmup
+    samples and residuals as test_flac_lpc_pallas_matches_int64 makes them.
+    -> (vals, orders, shifts, blocks, coefs[rows, 32])."""
+    orders = rng.integers(0, max_order + 1, rows)
+    orders[0] = max_order
+    shifts = rng.choice([0, 5, 9, 12, 15, 17, 20, 31, -1, -3, 14] if shifts is None else shifts,
+                        rows)
+    blocks = rng.integers(max(1, T // 2), T + 1, rows)
+    taps = np.minimum(orders, 32)
+    coefs = np.where(np.arange(32)[None, :] < taps[:, None],
+                     rng.integers(-(1 << 14), (1 << 14) + 1, (rows, 32)), 0)
+    vals = rng.integers(-2000, 2000, (rows, T))
+    vals = np.where(np.arange(T)[None, :] < orders[:, None],
+                    rng.integers(-30000, 30000, (rows, T)), vals)
+    neg = shifts < 0
+    coefs[neg] //= 1 << 12
+    vals[neg] = np.clip(vals[neg], -3, 3)
+    return vals, orders, shifts, blocks, coefs
+
+
+def lpc_cases(device="cuda"):
+    """-> (name, (vals, orders, shifts, blocks, coefs), K or None) of the
+    restore kernel: rows that are and are not on 16-byte boundaries, ragged
+    last tiles, fewer rows than a block, every tap count, negative and wide
+    shifts, blocks shorter than the row, orders beyond the taps and beyond a
+    tile."""
+    rng = np.random.default_rng(51)
+
+    def case(rows, T, max_order, **kw):
+        return tuple(_i32(a, device) for a in lpc_rows(rng, rows, T, max_order, **kw))
+
+    # 16-byte rows (T % 4 == 0): K = 4, 8, 16, 32; whole and ragged tiles
+    for rows, T, order in ((40, 192, 4), (33, 64, 7), (130, 600, 13), (70, 300, 32), (5, 4, 2)):
+        yield f"wide_{rows}x{T}_order{order}", case(rows, T, order), None
+    # rows off the 16-byte grid (T % 4 != 0): 4-byte copies
+    for rows, T, order in ((1, 1, 1), (65, 70, 3), (300, 257, 8), (31, 131, 32)):
+        yield f"narrow_{rows}x{T}_order{order}", case(rows, T, order), None
+    # T % 4 == 0 under a base that is not 16-byte aligned
+    vals, *rest = case(20, 128, 8)
+    flat = torch.cat([vals.reshape(-1)[:1], vals.reshape(-1)])
+    yield "misaligned_base", (flat[1:].view(20, 128), *rest), None
+    # shifts of 32 and more, either way, and beyond the clamp
+    yield "wide_shifts", case(64, 256, 8, shifts=[32, 33, 40, 63, 70, -31, -33, -40, -70, 3]), None
+    # fewer taps than the largest order, and orders beyond one tile (the
+    # warmup then spans tiles; both versions use the K newest samples)
+    args = list(lpc_rows(rng, 48, 320, 8))
+    yield "orders_beyond_taps", tuple(_i32(a, device) for a in args), 4
+    args = list(lpc_rows(rng, 48, 320, 32))
+    args[1][:6] = [100, 64, 65, 130, 319, 320]
+    yield "orders_beyond_a_tile", tuple(_i32(a, device) for a in args), 32
+    # blocks of 0 and 1, negative orders, blocks beyond the row
+    args = list(lpc_rows(rng, 40, 200, 8))
+    args[3][:6] = [0, 1, 7, 8, 9, 500]
+    args[1][6:9] = [-1, -7, 0]
+    yield "edge_blocks_and_orders", tuple(_i32(a, device) for a in args), 8

@@ -1,0 +1,201 @@
+"""What the compiler made of the port's CUDA kernels, and how fast they run.
+
+Run from the repository root on a machine with an NVIDIA GPU and the CUDA
+toolkit (imports torch, numpy, aukit_tpu_torch and chip_smoke's helpers; no
+JAX):
+
+    python3 tools/cuda_kernel_probe.py sass  [--csrc DIR] [--out DIR] [PATTERN ...]
+    python3 tools/cuda_kernel_probe.py bench [--csrc DIR] [--iters N]
+
+``sass`` builds the kernel library, prints ``ptxas -v``'s registers, spills
+and shared memory of every kernel whose demangled name contains one of the
+patterns (default: the DFPWM decode instantiations and the LPC restore), and
+from ``cuobjdump -sass`` the instruction count of each of its loops (a loop
+is a backward branch: the instructions from its target to the branch), with
+the opcode histogram of the largest loop. The DFPWM byte loop holds 8
+samples, so its count / 8 is the instructions per sample; the LPC loops hold
+as many samples as the source unrolls. ``--out`` keeps each kernel's SASS in
+a file.
+
+``bench`` times kernels (a), (b) and (g) alone by CUDA events at the shapes
+chip_smoke.py times them (random bytes instead of encoded tones), after
+checking each against its plain version at a small shape.
+
+``--csrc DIR`` builds another directory of sources (an earlier commit's
+``aukit_tpu_torch/csrc``) instead, to compare two versions on one card in
+one call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from aukit_tpu_torch.kernels import _build  # noqa: E402
+from aukit_tpu_torch.kernels import dfpwm_cuda as kc  # noqa: E402
+from aukit_tpu_torch.kernels import flac_cuda as kg  # noqa: E402
+
+DEFAULT_PATTERNS = ("dfpwm_decode_kernel", "lpc_restore_kernel")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel<template args>: ptxas -v's lines for it, joined}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            name = cs.demangle(m.group(1))
+            out[name] = []
+        elif name and ("Used" in ln or "spill" in ln):
+            out[name].append(ln.split("ptxas info    :")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def functions(sass: str) -> dict:
+    """{mangled name: [(address, predicate, opcode, operands)]} of cuobjdump -sass."""
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", ln):
+            cur = out.setdefault(m.group(1), [])
+        elif cur is not None and (m := re.match(
+                r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\d+\s+)?([A-Z0-9_.]+)\s*([^;]*);", ln)):
+            cur.append((int(m.group(1), 16), (m.group(2) or "").strip(), m.group(3), m.group(4)))
+    return out
+
+
+def loops(instrs: list) -> list:
+    """[(target address, branch address, instructions inside)] of each
+    backward branch, NOPs not counted."""
+    out = []
+    for addr, _pred, op, operands in instrs:
+        if op.startswith("BRA") and (m := re.search(r"0x([0-9a-f]+)", operands)):
+            target = int(m.group(1), 16)
+            if target <= addr:
+                body = [i for i in instrs if target <= i[0] <= addr and i[2] != "NOP"]
+                out.append((target, addr, body))
+    return out
+
+
+def cmd_sass(args) -> None:
+    lib = _build.load()
+    so = Path(lib._name)
+    report = ptxas_report((_build.BUILD_DIR / "build.log").read_text())
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    patterns = args.patterns or DEFAULT_PATTERNS
+    if args.out:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+    for sym, instrs in functions(sass).items():
+        name = cs.demangle(sym)
+        if not any(p in name for p in patterns):
+            continue
+        real = [i for i in instrs if i[2] != "NOP"]
+        print(f"[sass] kernel={name} instructions={len(real)} ptxas=\"{report.get(name, '?')}\"")
+        found = loops(instrs)
+        for target, addr, body in found:
+            print(f"[sass]   loop 0x{target:04x}..0x{addr:04x} instructions={len(body)}")
+        if found:
+            body = max(found, key=lambda lp: len(lp[2]))[2]
+            hist = collections.Counter(op.split(".")[0] for _a, _p, op, _o in body)
+            print("[sass]   largest loop: " + " ".join(f"{k}={v}" for k, v in hist.most_common()))
+        if args.out:
+            text = "\n".join(f"{a:05x} {p:6s} {op} {ops}" for a, p, op, ops in instrs)
+            (Path(args.out) / (re.sub(r"\W+", "_", name) + ".sass")).write_text(text + "\n")
+
+
+def cmd_bench(args) -> None:
+    smi = cs.phase_device()
+    _build.load()
+    rng = np.random.default_rng(21)
+
+    # right before fast: each kernel against its plain version at a small shape
+    lanes, nbytes = 200, 77
+    data = torch.tensor(rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8), device="cuda")
+    st = cs.random_state(rng, lanes)
+    mask = torch.tensor(rng.random(lanes) < 0.8, device="cuda")
+    gain = (torch.tensor(rng.uniform(0.2, 1.8, lanes).astype(np.float32), device="cuda"),
+            torch.tensor((rng.uniform(-1, 1, lanes) / 600).astype(np.float32), device="cuda"))
+    for name, got, want in (
+            ("dfpwm_decode", kc.dfpwm_decode_kernel(data, st), kc.dfpwm_decode_ref(data, st)),
+            ("dfpwm_decode_dsp", kc.dfpwm_decode_dsp_kernel(data, st, cs.ALPHA_48K, mask),
+             kc.dfpwm_decode_dsp_ref(data, st, cs.ALPHA_48K, mask)),
+            ("dfpwm_decode_dsp_gain", kc.dfpwm_decode_dsp_kernel(data, st, cs.ALPHA_48K, mask, gain),
+             kc.dfpwm_decode_dsp_ref(data, st, cs.ALPHA_48K, mask, gain))):
+        ok = cs.same(got[0], want[0])[0] and cs.same(got[1], want[1])[0]
+        cs.say("probe_check", kernel=name, equal=ok)
+        cs.check(ok, f"{name} kernel == plain")
+    for rows, T, order in ((70, 300, 32), (130, 600, 13), (300, 257, 8), (65, 70, 3)):
+        a = cs.lpc_args(rng, rows, T, order)
+        ok = torch.equal(kg.lpc_restore_kernel(*a), kg.lpc_restore_ref(*a))
+        cs.say("probe_check", kernel="lpc_restore", rows=rows, T=T, order=order, equal=ok)
+        cs.check(ok, "lpc_restore kernel == plain")
+
+    def best(fn) -> float:
+        fn()
+        return min(cs.event_ms(fn, args.iters) for _ in range(3))
+
+    full = cs.FULL_LANES
+    for lanes, nbytes in ((full, 24576), (full // 2, 4000), (full, 512)):
+        data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
+        st = cs.random_state(rng, lanes)
+        cs.say("probe_time", kernel="dfpwm_decode", lanes=lanes, bytes=nbytes,
+               ms=round(best(lambda: kc.dfpwm_decode_kernel(data, st)), 4))
+        del data
+    for lanes, nbytes in ((full, 6000), (full, 512)):
+        data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
+        st = cs.random_state(rng, lanes)
+        live = torch.ones(lanes, dtype=torch.bool, device="cuda")
+        gain = (torch.full((lanes,), 0.7, device="cuda"), torch.full((lanes,), 1e-6, device="cuda"))
+        cs.say("probe_time", kernel="dfpwm_decode_dsp", lanes=lanes, bytes=nbytes,
+               ms=round(best(lambda: kc.dfpwm_decode_dsp_kernel(data, st, cs.ALPHA_48K, live)), 4),
+               gain_ms=round(best(lambda: kc.dfpwm_decode_dsp_kernel(
+                   data, st, cs.ALPHA_48K, live, gain)), 4))
+        del data
+    torch.cuda.empty_cache()
+    for rows in (cs.LPC_ROWS, 7168, 2048):
+        a = cs.lpc_bench_args(rng, rows, cs.FLAC_N)
+        cs.say("probe_time", kernel="lpc_restore", rows=rows, samples=cs.FLAC_N, K=8,
+               ms=round(best(lambda: kg.lpc_restore_kernel(*a, K=8)), 4))
+    # one warp a scheduler: the row's own chain, by tap count (taps past 8 are zero)
+    a = cs.lpc_bench_args(rng, 2048, cs.FLAC_N)
+    for K in (8, 16, 32):
+        cs.say("probe_time", kernel="lpc_restore", rows=2048, samples=cs.FLAC_N, K=K,
+               ms=round(best(lambda: kg.lpc_restore_kernel(*a, K=K)), 4))
+    for K in (4, 16, 32):
+        a = cs.lpc_args(rng, 8192, 4096, K)
+        cs.say("probe_time", kernel="lpc_restore", rows=8192, samples=4096, K=K,
+               ms=round(best(lambda: kg.lpc_restore_kernel(*a, K=K)), 4))
+    print(smi, flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("sass")
+    p.add_argument("--out")
+    p.add_argument("patterns", nargs="*")
+    p.set_defaults(fn=cmd_sass)
+    p = sub.add_parser("bench")
+    p.add_argument("--iters", type=int, default=5)
+    p.set_defaults(fn=cmd_bench)
+    for q in sub.choices.values():
+        q.add_argument("--csrc", help="build this directory of sources instead")
+    args = ap.parse_args()
+    if args.csrc:
+        _build.SRC_DIR = Path(args.csrc).resolve()
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()
