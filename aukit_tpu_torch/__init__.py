@@ -18,14 +18,15 @@ from .kernels import (dfpwm_decode_dsp_kernel, dfpwm_decode_kernel, dfpwm_encode
                       iir_zero_kernel, ima_decode_kernel, lpc_restore_kernel,
                       msadpcm_decode_kernel, qoa_lms_kernel)
 from .stream import (BatchDfpwmDecoder, BatchDfpwmEncoder, BatchEncodeEngine, BatchMetrics,
-                     BatchStreamEngine, EncodeSpec, FlacFleet, LaneSpec, lane_spec_for_aiff,
+                     BatchStreamEngine, EncodeSpec, FlacFleet, LaneSpec, encode_windows_many,
+                     lane_spec_for_aiff,
                      lane_spec_for_au, lane_spec_for_qoa, lane_spec_for_wav, mdfpwm_to_lanes,
                      transcode_fleet)
 
 __all__ = ["CONFIG", "DfpwmState", "dfpwm_decode", "dfpwm_encode", "decode_dfpwm_bytes",
            "encode_dfpwm_bytes", "dfpwm_decode_kernel", "dfpwm_decode_dsp_kernel",
            "dfpwm_encode_kernel", "BatchDfpwmEncoder", "BatchEncodeEngine", "EncodeSpec",
-           "transcode_fleet",
+           "encode_windows_many", "transcode_fleet",
            "ima_decode_kernel", "msadpcm_decode_kernel", "qoa_lms_kernel",
            "lpc_restore_kernel", "iir_zero_kernel", "FlacFleet",
            "BatchStreamEngine", "BatchDfpwmDecoder", "BatchMetrics", "LaneSpec",

@@ -29,7 +29,8 @@
 // accesses cover all 32 banks whether eight lanes write their own rows or
 // eight threads read along one row. Odd row lengths take 4-byte stores and
 // byte loads; the ragged last tile runs the same code with a shorter count.
-// The encoder keeps its 4-byte staging and its odd strides.
+// The encoder (below, at its kernel) runs on the pipelined skeleton of
+// lane_scan.cuh instead: its wide side is the input.
 //
 // What bounds the decoder on the H100 (measured: PERF.md). Per 8 samples a
 // lane reads 1 byte and writes 8, far under the memory rate: instructions
@@ -78,8 +79,7 @@
 // normalisation an IEEE division. The build passes --fmad=false, so nvcc
 // contracts nothing else, and never --use_fast_math.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "lane_scan.cuh"
 
 namespace {
 
@@ -91,8 +91,6 @@ constexpr int LOWPASS_NUM = 140;
 
 constexpr int LANES = 64;                       // threads (= lanes) per block
 constexpr int TILE_BYTES = 32;                  // bytes per lane per tile
-// the encoder's tiles
-constexpr int IN_STRIDE = TILE_BYTES + 4;       // 9 words: odd
 constexpr int OUT_WORDS = TILE_BYTES * 2;       // 8 int8 samples = 2 words per byte
 // the decoder's tiles: rows of 16-byte words
 constexpr int DEC_IN_STRIDE = TILE_BYTES + 16;  // bytes; 12 words
@@ -325,83 +323,202 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
 }
 
 // The encoder (_encode_kernel, dfpwm_pallas.py:288-344), the decoder's
-// mirror: here the input is the wide side, 8 int8 levels in for each byte
-// out. A block stages 8 * TILE_BYTES levels of each of its rows as 4-byte
-// words along the row (every row starts on a word: N is a multiple of 8 and
-// the wrapper hands over a word-aligned base), one thread encodes its lane
-// out of shared memory with the three state words (charge, strength,
-// previous bit) in registers, and the bytes go back through a second tile
-// along the rows. The level tile's row stride is 65 words, odd, so the
-// per-lane reads hit 32 distinct banks. The bit is 1 iff level > charge, or
-// level == charge == 127 (silence then encodes to alternating bits); 8 bits
-// pack LSB first. Per byte out the lane moves 9 bytes and runs 8 dependent
-// predictor steps of ~24 integer operations: at 32768 lanes (8 warps per SM)
-// the chain's latency bounds it before the bytes do, as in the decoder.
-constexpr int LEVEL_WORDS = TILE_BYTES * 2;     // 8 int8 levels = 2 words per byte out
-constexpr int LEVEL_STRIDE = LEVEL_WORDS + 1;   // 65 words: odd
+// mirror: the input is the wide side, 8 int8 levels in for each byte out.
+// The bit is 1 iff level > charge, or level == charge == 127 (silence then
+// encodes to alternating bits); the predictor follows the bit as in the
+// decoder; 8 bits pack LSB first. State: charge, strength, previous bit.
+//
+// What bounds it on the H100 (measured: PERF.md). A sample is 9/8 of a byte
+// moved and one step of a recurrence whose bit depends on the charge, so a
+// step is one dependent chain and the lanes are its only parallelism. A
+// transcode window launches it on 16384 and on 8192 lanes, one warp or none
+// a scheduler, where nothing hides a tile's loads or the chain's latency:
+// hence the ring and the short chain below.
+// With the levels arriving ahead of the lane, what is left is the step's own
+// instructions: 22.8 a sample, 18.6 of them on the integer pipe, which starts
+// a warp's instruction every other cycle. That is 35-45 cycles a sample a
+// warp at every width: two warps a scheduler share the pipe (32768 lanes),
+// one warp runs at its own pace (16384), and at 8192 lanes half of the
+// schedulers have none, which no design of the kernel can fill.
+//
+// Design.
+//   - The levels move through ring_rows (lane_scan.cuh): a row is its int8
+//     levels as 4-byte words, a tile 64 words = 256 levels = 32 bytes out,
+//     fetched by cp.async two tiles ahead (16 bytes a copy when the byte
+//     count is even and the base aligned, so rows start on 16-byte
+//     boundaries; 8 or 4 bytes otherwise), in blocks of one warp, so 8192
+//     lanes are 256 blocks on 132 SMs. A lane reads 32 levels as two 16-byte words
+//     of shared memory, leaves their 32 bits as one word at the head of its
+//     row (behind its own reads), and the warp stores the 32 bytes of each
+//     row 16 bytes a store (byte count a multiple of 16, aligned base), 4, or
+//     a byte at a time, a thread keeping its column down the rows.
+//   - The step of a tame lane (charge in [-128, 127], strength in [0, 1023],
+//     previous bit 0 or 1: every state a stream produces, and a lane that
+//     starts so stays so, see tame()) is written for a short chain: the
+//     charge's next value is computed for both targets side by side (two
+//     multiply-adds, two shifts), each with its stall nudge as one max or min
+//     (the move toward 127 is never negative, so "a move of 0 short of the
+//     target becomes 1" is max(move, min(distance, 1)); the mirror toward
+//     -128), and the bit, level > charge or level == 127, is compared in
+//     their shadow and selects one. The chain from charge to charge is then
+//     subtract, multiply-add, shift, max, select, add: 6 instructions where
+//     the predictor's compare -> target -> ... -> nudge compares had ~10.
+//     The strength is clamp(strength + 1 - 2 * (bit ^ previous), 8, 1023).
+//     The speculation costs instructions (22.8 a sample against 17.8 without
+//     it) and still wins at every width (PERF.md). Any other lane runs the
+//     decoder's predict(), exact for every int32 state; the state is tested
+//     once a call.
+constexpr int ENC_TILE_BYTES = aukit::ASYNC_TILE / 2;  // bytes out per lane per tile
 
-__global__ void __launch_bounds__(LANES)
-dfpwm_encode_kernel(const int8_t* __restrict__ levels,
+struct Enc {
+  int q, s, lb;
+};
+
+__device__ __forceinline__ bool tame(const Enc& st) {
+  return static_cast<unsigned>(st.q + 128) < 256u &&
+         static_cast<unsigned>(st.s) <= static_cast<unsigned>(STRENGTH_MAX) &&
+         static_cast<unsigned>(st.lb) <= 1u;
+}
+
+// One sample -> its bit.
+template <bool TAME>
+__device__ __forceinline__ int encode_step(Enc& st, int level) {
+  if (TAME) {
+    // both targets' moves side by side, the bit's compare in their shadow.
+    // The move toward 127 is >= 0 and toward -128 <= 0, so the stall nudge
+    // (a move of 0 short of the target becomes 1) is a max or a min with the
+    // distance clamped to one step.
+    const int a1 = 127 - st.q, a0 = a1 - 255;
+    const int d1 = (st.s * a1 + PREC_HALF) >> PREC, d0 = (st.s * a0 + PREC_HALF) >> PREC;
+    const int m1 = max(d1, min(a1, 1)), m0 = min(d0, max(a0, -1));
+    const int bit = (level > st.q || level == 127) ? 1 : 0;  // charge <= 127
+    st.q += bit ? m1 : m0;
+    st.s = min(max(st.s + 1 - 2 * (bit ^ st.lb), STRENGTH_MIN), STRENGTH_MAX);
+    st.lb = bit;
+    return bit;
+  }
+  const int bit = (level > st.q || (level == st.q && st.q == 127)) ? 1 : 0;
+  predict(st.q, st.s, st.lb, bit);
+  st.lb = bit;
+  return bit;
+}
+
+// Byte k of w, sign-extended: one PRMT (selector 8 + k replicates byte k's sign).
+__device__ __forceinline__ int sext_byte(uint32_t w, int k) {
+  int d;
+  asm("prmt.b32 %0, %1, %1, %2;" : "=r"(d) : "r"(w), "r"(0x8880 + 0x1111 * k));
+  return d;
+}
+
+// WORDS words of 4 levels each -> their 4 * WORDS bits, first sample lowest.
+template <bool TAME, int WORDS>
+__device__ __forceinline__ uint32_t encode_words(Enc& st, const uint32_t (&w)[WORDS]) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4 * WORDS; ++i) {
+    const int level = sext_byte(w[i >> 2], i & 3);
+    bits |= static_cast<uint32_t>(encode_step<TAME>(st, level)) << i;
+  }
+  return bits;
+}
+
+struct EncLane {
+  Enc st;
+  long long nbytes;
+  bool is_tame;
+
+  template <bool TAME>
+  __device__ __forceinline__ void run(uint32_t* row, int nb) {
+    if (nb == ENC_TILE_BYTES) {
+#pragma unroll 1
+      for (int i = 0; i < ENC_TILE_BYTES / 4; ++i) {
+        const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * i);
+        const uint4 v = *reinterpret_cast<const uint4*>(row + 8 * i + 4);
+        const uint32_t w[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+        row[i] = encode_words<TAME>(st, w);  // words 0..8i+7 are read: i is free
+      }
+    } else {  // the ragged last tile, a byte at a time
+      uint8_t* out = reinterpret_cast<uint8_t*>(row);
+#pragma unroll 1
+      for (int j = 0; j < nb; ++j) {
+        const uint32_t w[2] = {row[2 * j], row[2 * j + 1]};
+        out[j] = static_cast<uint8_t>(encode_words<TAME>(st, w));
+      }
+    }
+  }
+
+  // One tile of the row: 64 words of levels in, ENC_TILE_BYTES bytes left at
+  // the row's head. t0 counts words: byte t0 / 2 of the lane's output.
+  __device__ __forceinline__ void tile(uint32_t* row, long long t0) {
+    const int nb = static_cast<int>(min(static_cast<long long>(ENC_TILE_BYTES), nbytes - t0 / 2));
+    if (is_tame) {
+      run<true>(row, nb);
+    } else {
+      run<false>(row, nb);
+    }
+  }
+};
+
+// The bytes at the head of each of the tile's rows -> out[L, nbytes], WIDTH
+// (16, 4 or 1) bytes a store; nb (a multiple of WIDTH) bytes a row.
+template <int WIDTH>
+__device__ __forceinline__ void store_bytes(const uint32_t* tile, uint8_t* __restrict__ dst,
+                                            long long nbytes, int nlanes, int nb) {
+  constexpr int PER_ROW = ENC_TILE_BYTES / WIDTH;          // stores per row
+  constexpr int ROWS = aukit::ASYNC_LANES / PER_ROW;       // rows per pass
+  const int c = (threadIdx.x % PER_ROW) * WIDTH, r0 = threadIdx.x / PER_ROW;
+  if (c >= nb) return;
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(tile) + c;
+#pragma unroll 8
+  for (int k = 0; k < aukit::ASYNC_LANES / ROWS; ++k) {
+    const int r = r0 + k * ROWS;
+    if (r < nlanes) {
+      const uint8_t* from = src + r * (aukit::ASYNC_STRIDE * 4);
+      uint8_t* to = dst + r * nbytes + c;
+      if (WIDTH == 16) {
+        *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+      } else if (WIDTH == 4) {
+        *reinterpret_cast<uint32_t*>(to) = *reinterpret_cast<const uint32_t*>(from);
+      } else {
+        *to = *from;
+      }
+    }
+  }
+}
+
+// in_width: 4-byte words a copy of the levels (aukit::copy_width); out_width:
+// 16, 4 or 1 bytes a store. The launcher decides both.
+__global__ void __launch_bounds__(aukit::ASYNC_LANES)
+dfpwm_encode_kernel(const uint32_t* __restrict__ levels,
                     const int32_t* __restrict__ state_in,
                     uint8_t* __restrict__ out, int32_t* __restrict__ state_out,
-                    int lanes, long long nbytes) {
-  __shared__ uint32_t level_tile[LANES * LEVEL_STRIDE];
-  __shared__ uint32_t byte_tile[LANES * IN_STRIDE / 4];
-  uint8_t* byte_w = reinterpret_cast<uint8_t*>(byte_tile);
-
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * LANES;
-  const int nlanes = min(LANES, lanes - lane0);
-  const bool active = tid < nlanes;
-  const int lane = lane0 + tid;
-
-  int q = 0, s = 0, lb = 0;
+                    int lanes, long long nbytes, int in_width, int out_width) {
+  const int lane = blockIdx.x * aukit::ASYNC_LANES + threadIdx.x;
+  const bool active = lane < lanes;
+  EncLane e{{0, 0, 0}, nbytes, true};
   if (active) {
-    q = state_in[lane];
-    s = state_in[lanes + lane];
-    lb = state_in[2 * lanes + lane];
+    e.st.q = state_in[lane];
+    e.st.s = state_in[lanes + lane];
+    e.st.lb = state_in[2 * lanes + lane];
   }
+  e.is_tame = tame(e.st);
 
-  for (long long b0 = 0; b0 < nbytes; b0 += TILE_BYTES) {
-    const int nb = static_cast<int>(min(static_cast<long long>(TILE_BYTES), nbytes - b0));
-    const int words = 2 * nb;
-    for (int i = tid; i < nlanes * LEVEL_WORDS; i += LANES) {
-      const int r = i / LEVEL_WORDS, c = i % LEVEL_WORDS;
-      if (c < words) {
-        const uint32_t* row =
-            reinterpret_cast<const uint32_t*>(levels + ((lane0 + r) * nbytes + b0) * 8);
-        level_tile[r * LEVEL_STRIDE + c] = row[c];
-      }
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < nb; ++j) {
-        const uint32_t w[2] = {level_tile[tid * LEVEL_STRIDE + 2 * j],
-                               level_tile[tid * LEVEL_STRIDE + 2 * j + 1]};
-        int byte = 0;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int level = static_cast<int8_t>(w[k >> 2] >> (8 * (k & 3)));
-          const int bit = (level > q || (level == q && q == 127)) ? 1 : 0;
-          predict(q, s, lb, bit);
-          lb = bit;
-          byte |= bit << k;
-        }
-        byte_w[tid * IN_STRIDE + j] = static_cast<uint8_t>(byte);
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < nlanes * TILE_BYTES; i += LANES) {
-      const int r = i / TILE_BYTES, c = i % TILE_BYTES;
-      if (c < nb) out[(lane0 + r) * nbytes + b0 + c] = byte_w[r * IN_STRIDE + c];
-    }
-    __syncthreads();  // the next tile overwrites both shared tiles
-  }
+  aukit::ring_rows(levels, lanes, 2 * nbytes, in_width, e,
+                   [=](const uint32_t* tile, int lane0, int nlanes, long long t0, int nt) {
+                     uint8_t* dst = out + static_cast<long long>(lane0) * nbytes + t0 / 2;
+                     if (out_width == 16) {
+                       store_bytes<16>(tile, dst, nbytes, nlanes, nt / 2);
+                     } else if (out_width == 4) {
+                       store_bytes<4>(tile, dst, nbytes, nlanes, nt / 2);
+                     } else {
+                       store_bytes<1>(tile, dst, nbytes, nlanes, nt / 2);
+                     }
+                   });
 
   if (active) {
-    state_out[lane] = q;
-    state_out[lanes + lane] = s;
-    state_out[2 * lanes + lane] = lb;
+    state_out[lane] = e.st.q;
+    state_out[lanes + lane] = e.st.s;
+    state_out[2 * lanes + lane] = e.st.lb;
   }
 }
 
@@ -464,9 +581,19 @@ extern "C" int aukit_dfpwm_decode_dsp(const void* bytes, const void* state_in,
 extern "C" int aukit_dfpwm_encode(const void* levels, const void* state_in,
                                   void* out, void* state_out, int lanes,
                                   long long nbytes, void* stream) {
-  dfpwm_encode_kernel<<<blocks_for(lanes), LANES, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(levels), static_cast<const int32_t*>(state_in),
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(state_out), lanes, nbytes);
+  const auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
+  // a row of levels is 2 * nbytes words
+  const int in_width = aukit::copy_width(2 * nbytes, levels, levels);
+  const int out_width = nbytes % 16 == 0 && aligned(out, 16) ? 16
+                        : nbytes % 4 == 0 && aligned(out, 4) ? 4 : 1;
+  // 32768 lanes are 7.8 blocks per SM: their rings need the SM's whole shared memory
+  cudaFuncSetAttribute(dfpwm_encode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  dfpwm_encode_kernel<<<aukit::async_blocks(lanes), aukit::ASYNC_LANES, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(levels), static_cast<const int32_t*>(state_in),
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(state_out), lanes, nbytes, in_width,
+      out_width);
   return static_cast<int>(cudaGetLastError());
 }
 

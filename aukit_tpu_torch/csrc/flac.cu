@@ -130,7 +130,7 @@ __global__ void __launch_bounds__(aukit::ASYNC_LANES)
 lpc_restore_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__ orders,
                    const int32_t* __restrict__ shifts, const int32_t* __restrict__ blocks,
                    const int32_t* __restrict__ coefs, int32_t* __restrict__ out, int lanes,
-                   long long T, bool wide) {
+                   long long T, int width) {
   const int lane = blockIdx.x * aukit::ASYNC_LANES + threadIdx.x;
   LpcLane<K> st{};
   if (lane < lanes) {
@@ -142,22 +142,20 @@ lpc_restore_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__
 #pragma unroll
     for (int j = 0; j < K; ++j) st.c[j] = coefs[static_cast<long long>(lane) * K + j];
   }
-  aukit::scan_rows_async(vals, out, lanes, T, wide, st);
+  aukit::scan_rows_async(vals, out, lanes, T, width, st);
 }
 
 template <int K>
 void launch(const void* vals, const void* orders, const void* shifts, const void* blocks,
             const void* coefs, void* out, int lanes, long long T, cudaStream_t stream) {
-  // 16-byte copies need rows on 16-byte boundaries
-  const bool wide = T % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   // 32768 rows are 7.8 blocks per SM: their rings need the SM's whole shared memory
   cudaFuncSetAttribute(lpc_restore_kernel<K>, cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
   lpc_restore_kernel<K><<<aukit::async_blocks(lanes), aukit::ASYNC_LANES, 0, stream>>>(
       static_cast<const int32_t*>(vals), static_cast<const int32_t*>(orders),
       static_cast<const int32_t*>(shifts), static_cast<const int32_t*>(blocks),
-      static_cast<const int32_t*>(coefs), static_cast<int32_t*>(out), lanes, T, wide);
+      static_cast<const int32_t*>(coefs), static_cast<int32_t*>(out), lanes, T,
+      aukit::copy_width(T, vals, out));
 }
 
 }  // namespace

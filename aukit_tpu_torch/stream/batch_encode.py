@@ -8,7 +8,9 @@ auconvert.lua:412-419).
    channels (``EncodeSpec``: DFPWM, or little-endian WAV-layout PCM
    8/16/24/32); equal specs share one device dispatch per step;
  - **device-to-device glue**: ``encode_windows(windows, mask)`` consumes a
-   decode engine's int8 window tensor without leaving device memory. At gain
+   decode engine's int8 window tensor without leaving device memory
+   (``encode_windows_many`` runs several engines' calls side by side on CUDA
+   streams: a port-only entry point, the JAX package leaves that to XLA). At gain
    1 the int8 -> target-int conversion is a lookup of the 256-entry table
    ``_int8_lut`` that replicates the solo chain (int8 bytes -> aukit.pcm 8-bit
    loader -> encodePCM in float64 -> trunc), so fleet transcodes are bit-equal
@@ -54,7 +56,7 @@ from .batch import BatchMetrics, _GroupIO, _to_device, require_device
 from .batch_codecs import NoState
 
 __all__ = ["BatchDfpwmEncoder", "BatchEncodeEngine", "EncodeSpec", "ENCODE_CODECS",
-           "transcode_fleet"]
+           "encode_windows_many", "transcode_fleet"]
 
 
 class BatchDfpwmEncoder:
@@ -340,6 +342,7 @@ class BatchEncodeEngine:
                 "BatchEncodeEngine(mesh=...) is not ported to aukit_tpu_torch yet "
                 "(ROADMAP.md queue 1, 'Multi-GPU')")
         self.device = require_device(device, "BatchEncodeEngine")
+        self._side_stream = None  # made by encode_windows_many on a CUDA device
         self.specs = specs
         self.lanes = len(specs)
         self.chunk_samples = chunk_samples
@@ -516,6 +519,35 @@ class BatchEncodeEngine:
     def reset_lane(self, lane: int):
         self.restore(lane, {"samples_in": 0, "codec_state": None,
                             "volume": (1.0, 1.0), "eof": False})
+
+
+def encode_windows_many(jobs):
+    """``engine.encode_windows(windows, mask)`` for every ``(engine, windows,
+    mask)`` of ``jobs``, in order -> the list of their results. The engines
+    are independent (several encoders fed by one fleet's decode windows:
+    mono DFPWM, stereo DFPWM, pcm16), and one engine's DFPWM encode kernel
+    fills at most a warp a scheduler at fleet widths, so on a CUDA device each
+    engine's work is queued on a side stream of its own, which first waits
+    for the current stream; the current stream then waits for every side
+    stream, so what the caller queues next sees all results, as after the
+    calls in sequence. Bytes and state are the same either way; on the CPU
+    the calls simply run in sequence."""
+    jobs = list(jobs)
+    if len(jobs) < 2 or any(eng.device.type != "cuda" for eng, _w, _m in jobs):
+        return [eng.encode_windows(w, m) for eng, w, m in jobs]
+    results, sides = [], []
+    for eng, windows, mask in jobs:
+        current = torch.cuda.current_stream(eng.device)
+        if eng._side_stream is None:
+            eng._side_stream = torch.cuda.Stream(eng.device)
+        side = eng._side_stream
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            results.append(eng.encode_windows(windows, mask))
+        sides.append((current, side))
+    for current, side in sides:
+        current.wait_stream(side)
+    return results
 
 
 def transcode_fleet(source, encoder: BatchEncodeEngine, max_steps: int = 1 << 20):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from aukit_tpu_torch import (BatchDfpwmDecoder, BatchEncodeEngine, BatchStreamEngine, EncodeSpec,
-                             FlacFleet, LaneSpec, kernels, transcode_fleet)
+                             FlacFleet, LaneSpec, encode_windows_many, kernels, transcode_fleet)
 from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.containers.wav import pcm_wav_header
@@ -299,19 +299,23 @@ def phase_kernel_vs_plain() -> dict:
 
 
 def phase_redesigned_kernel_paths() -> dict:
-    """Every path of the kernels redesigned for Hopper, (b) and (g), against
-    their plain versions on the same CUDA tensors, max |error| 0, on the
-    cases of tests/torch_kernel_cases.py: for (b) the table's 256 lowpass
+    """Every path of the kernels redesigned for Hopper, (b), (c), (g) and (h),
+    against their plain versions on the same CUDA tensors, max |error| 0, on
+    the cases of tests/torch_kernel_cases.py: for (b) the table's 256 lowpass
     words, states outside their ranges (the division path), odd and short
     rows, ragged tiles and lanes, a misaligned base, gains past the rails and
     to +-inf and NaN, masked lanes whose state advances; kernel (a), which
     shares the staging, on the same bytes; for (g) rows on and off the
-    16-byte grid, every tap count, wide and negative shifts, ragged blocks.
+    16-byte grid, every tap count, wide and negative shifts, ragged blocks;
+    for (c) tame and wild states, levels on both rails, every store width,
+    ragged tiles, a misaligned base, chained calls; for (h) row lengths from
+    one sample to a 44.1 kHz block's 4458, alphas near 0 and 1, denormals.
     Then the ramp's 64-bit time (more than 2^24 samples a lane) against the
     plain epilogue over kernel (a)'s raw samples: the plain decode loop
     would take hours there. Returns max |error| by kernel."""
     cases = load_test_module("torch_kernel_cases")
-    errs = {"dfpwm_decode": 0, "dfpwm_decode_dsp": 0, "lpc_restore": 0}
+    errs = {"dfpwm_decode": 0, "dfpwm_decode_dsp": 0, "lpc_restore": 0, "dfpwm_encode": 0,
+            "iir_zero": 0}
     names = []
     for name, data, st, mask, gain in cases.dsp_cases("cuda"):
         for key, got, want in (
@@ -333,6 +337,26 @@ def phase_redesigned_kernel_paths() -> dict:
         check(ok, f"lpc_restore kernel == plain on case {name}")
         names.append(name)
     say("kernel_vs_plain_paths", kernel="lpc_restore", cases=json.dumps(names), out_equal=True)
+    names = []
+    for name, calls, st in cases.encode_cases("cuda"):
+        ref_st = st
+        for call, x in enumerate(calls):
+            (out, st), (ref, ref_st) = kc.dfpwm_encode_kernel(x, st), kc.dfpwm_encode_ref(x, ref_st)
+            (ok_o, e_o), (ok_s, e_s) = same(out, ref), same(st, ref_st)
+            errs["dfpwm_encode"] = max(errs["dfpwm_encode"], e_o, e_s)
+            check(ok_o and ok_s, f"dfpwm_encode kernel == plain on case {name}, call {call}")
+        names.append(name)
+    say("kernel_vs_plain_paths", kernel="dfpwm_encode", cases=json.dumps(names), out_equal=True,
+        state_equal=True)
+    names = []
+    for name, x, alpha in cases.iir_cases("cuda"):
+        out, ref = kh.iir_zero_kernel(x, alpha), kh.iir_zero_ref(x, alpha)
+        ok = torch.equal(out, ref)
+        if not ok:
+            errs["iir_zero"] = max(errs["iir_zero"], float((out.double() - ref.double()).abs().max()))
+        check(ok, f"iir_zero kernel == plain on case {name}")
+        names.append(name)
+    say("kernel_vs_plain_paths", kernel="iir_zero", cases=json.dumps(names), out_equal=True)
 
     # the ramp beyond 2^24 samples a lane
     rng = np.random.default_rng(52)
@@ -1079,6 +1103,8 @@ FLAC_CHECK_LANES = 64
 LPC8 = [120, -60, 30, -15, 8, -4, 2, -1]  # bench.py:371: order 8, shift 9
 LPC_ROWS = 32768  # kernel (g)'s profile shape (flac_pallas.py:47-49): 32768 rows x 4096
 LPC_FLEET_ROWS = 7168  # the restore batch of one step of the 2048-lane fleet
+IIR_44K_LEN = 4458  # a 44.1 kHz lane's 4096-sample block, resampled to 48 kHz: off the 16-byte grid
+IIR_44K_ROWS = 28672  # the 44.1 kHz stereo group's lowpass rows in one step of that fleet
 
 
 def load_fixtures():
@@ -1421,7 +1447,7 @@ def phase_flac_step_breakdown(streams) -> dict:
     """Where the time of one FLAC fleet step goes: a fresh fleet steps once
     on one drip (allocations; the arguments of kernels (g) and (h) are kept),
     then one steady step under torch.profiler: its wall time, the host parse
-    (``_parse_step``), the staging of the restore batch (host time from
+    (``_parse_step``), the staging of the restore batches (host time from
     ``_device_full_step``'s start to the restore's launch, pageable copies
     included), the device time of (g), (h), the FMA kernel, the host<->device
     copies and the other torch ops, and the device's busy share. Then (g)
@@ -1446,8 +1472,8 @@ def phase_flac_step_breakdown(streams) -> dict:
         kept.setdefault("lpc", (a, k))
         return kg.lpc_restore_kernel(*a, **k)
 
-    def lowpass(*a):
-        kept.setdefault("iir", a)
+    def lowpass(*a):  # one launch a geometry group: 4096-sample rows, and 44.1 kHz rows
+        kept.setdefault(("iir", a[0].shape[1]), a)
         return kh.iir_zero_kernel(*a)
 
     fleet._parse_step, fleet._device_full_step = timed_parse, timed_full
@@ -1485,13 +1511,20 @@ def phase_flac_step_breakdown(streams) -> dict:
         busy_with_copies=round(busy_ms(everything) / wall, 4))
     del fleet
     errs = {}
+    lowpass_rows = sorted(k[1] for k in kept if k != "lpc")
+    check(FLAC_N in lowpass_rows and IIR_44K_LEN in lowpass_rows,
+          f"the step filters 48 kHz and 44.1 kHz rows ({lowpass_rows})")
+    check(tuple(kept["iir", IIR_44K_LEN][0].shape) == (IIR_44K_ROWS, IIR_44K_LEN),
+          "the 44.1 kHz group's rows are the shape kernel (h) is timed at")
     for name, kernel, plain, (args, kw) in (
             ("lpc_restore", kg.lpc_restore_kernel, kg.lpc_restore_ref, kept["lpc"]),
-            ("iir_zero", kh.iir_zero_kernel, kh.iir_zero_ref, (kept["iir"], {}))):
+            *(("iir_zero", kh.iir_zero_kernel, kh.iir_zero_ref, (kept["iir", T], {}))
+              for T in lowpass_rows)):
         out, ms = timed(lambda: kernel(*args, **kw))
         ref, plain_ms = timed(lambda: plain(*args, **kw))
         ok = torch.equal(out, ref)
-        errs[name] = 0 if ok else float((out.double() - ref.double()).abs().max())
+        err = 0 if ok else float((out.double() - ref.double()).abs().max())
+        errs[name] = max(errs.get(name, 0), err)
         say("kernel_vs_plain_fleet_step", kernel=name, rows=out.shape[0], samples=out.shape[1],
             out_equal=ok, ms=round(ms, 4), plain_ms=round(plain_ms, 2))
         check(ok, f"{name} kernel == plain on one fleet step's arguments")
@@ -1504,7 +1537,8 @@ def phase_flac_step_breakdown(streams) -> dict:
 def phase_flac_times() -> dict:
     """Kernels (g) and (h) against their plain versions at the main shapes
     (32768 x 4096; (g) at order 8), by CUDA events, in turns kernel, plain,
-    kernel, plain."""
+    kernel, plain; then each alone at the shapes one step of the 2048-lane
+    fleet launches it, (h) on 48 kHz and on 44.1 kHz rows."""
     rng = np.random.default_rng(16)
     times = {}
     for name, args, kernel, plain in (
@@ -1531,6 +1565,18 @@ def phase_flac_times() -> dict:
         ms=round(ms, 4), gsamples_per_s=round(LPC_FLEET_ROWS * FLAC_N / ms / 1e6, 2))
     timing("lpc_restore_fleet_step", ms, float("nan"),
            LPC_FLEET_ROWS * FLAC_N * lpc_ops_per_sample(8), LPC_FLEET_ROWS * FLAC_N * 8)
+    del args
+    # (h) at the shapes one step of the fleet launches it: a 48 kHz group's
+    # rows, and a 44.1 kHz group's (rows off the 16-byte grid)
+    for label, rows, T in (("48k", LPC_FLEET_ROWS, FLAC_N), ("44k1", IIR_44K_ROWS, IIR_44K_LEN)):
+        args = iir_args(rng, rows, T)
+        kh.iir_zero_kernel(*args)
+        ms = min(event_ms(lambda: kh.iir_zero_kernel(*args), 10) for _ in range(2))
+        say("time", kernel=f"iir_zero_fleet_step_{label}", rows=rows, samples=T,
+            ms=round(ms, 4), gsamples_per_s=round(rows * T / ms / 1e6, 2))
+        timing(f"iir_zero_fleet_step_{label}", ms, float("nan"),
+               rows * T * OPS_PER_SAMPLE["iir_zero"], rows * T * 8)
+        del args
     return times
 
 
@@ -1643,8 +1689,9 @@ def transcode_step(engines):
         return None
     wm, mask_m, _ = dec_m.step()
     ws, mask_s, _ = dec_s.step()
-    return (enc_m.encode_windows(wm, mask_m), enc_s.encode_windows(ws, mask_s),
-            enc_p.encode_windows(ws, mask_s))
+    # the three encoders are independent: side by side on streams
+    return tuple(encode_windows_many([(enc_m, wm, mask_m), (enc_s, ws, mask_s),
+                                      (enc_p, ws, mask_s)]))
 
 
 def run_transcode(device: str, mono_rows, stereo_rows, pick_m, pick_s):
@@ -1795,9 +1842,15 @@ def phase_transcode_breakdown(mono_rows, stereo_rows) -> None:
                       if not any(v in e.name for v in names.values())]
     everything = [iv for ivs in spans.values() for iv in ivs]
     kernels_only = [iv for k, ivs in spans.items() if k != "htod" for iv in ivs]
+    # kernel (c)'s two launches: each one's own time, and from the first's
+    # start to the last's end (less than their sum where the streams overlap them)
+    enc = sorted(spans["dfpwm_encode"])
+    check(len(enc) == 2, f"kernel (c) launched twice in the window ({len(enc)})")
     say("step_breakdown", case="transcode", lanes=len(mono_rows) + len(stereo_rows),
         first_step_ms=round(first_ms, 3), profiled_window_ms=round(wall, 3),
         staging_host_ms=round(staged[0] * 1e3, 3),
+        dfpwm_encode_each_ms=json.dumps([round((b - a) / 1e3, 3) for a, b in enc]),
+        dfpwm_encode_span_ms=round((enc[-1][1] - enc[0][0]) / 1e3, 3),
         **{f"{k}_ms": round(busy_ms(v), 3) for k, v in spans.items()},
         device_events=len(dev), busy_kernels=round(busy_ms(kernels_only) / wall, 4),
         busy_with_copies=round(busy_ms(everything) / wall, 4))
@@ -1879,7 +1932,8 @@ def phase_flac_transcode(fx) -> None:
 def phase_encode_time(plain_ms: float) -> dict:
     """Kernel (c) alone at 32768 x 48000 levels (one second of every lane of
     the headline fleet), by CUDA events; ``plain_ms`` is its plain version's
-    time on the card at the same shape."""
+    time on the card at the same shape. Then at the two shapes a transcode
+    window launches it on."""
     lanes, n = FULL_LANES, 48000
     x = torch.randint(-128, 128, (lanes, n), dtype=torch.int8, device="cuda")
     st = [DfpwmState.zeros(lanes, "cuda")]
@@ -1893,8 +1947,23 @@ def phase_encode_time(plain_ms: float) -> dict:
         plain_ms=round(plain_ms, 2), gsamples_per_s=round(lanes * n / ms / 1e6, 2),
         realtime_factor=round(lanes * n / (ms / 1e3) / 48000, 1))
     # eight int8 levels in, a byte out
-    return {"dfpwm_encode": timing("dfpwm_encode", ms, plain_ms,
-                                   lanes * n * OPS_PER_SAMPLE["dfpwm_encode"], lanes * n * 9 / 8)}
+    row = timing("dfpwm_encode", ms, plain_ms, lanes * n * OPS_PER_SAMPLE["dfpwm_encode"],
+                 lanes * n * 9 / 8)
+    del x, st
+    torch.cuda.empty_cache()
+    # a transcode window's two launches: the mono group's rows of one second,
+    # the stereo group's interleaved rows of twice the length
+    for label, lanes, n in (("mono", TRANSCODE_MONO, 48000), ("stereo", TRANSCODE_STEREO, 96000)):
+        x = torch.randint(-128, 128, (lanes, n), dtype=torch.int8, device="cuda")
+        st0 = DfpwmState.zeros(lanes, "cuda")
+        kc.dfpwm_encode_kernel(x, st0)
+        ms = min(event_ms(lambda: kc.dfpwm_encode_kernel(x, st0), 5) for _ in range(2))
+        say("time", kernel=f"dfpwm_encode_window_{label}", lanes=lanes, samples=n, ms=round(ms, 4),
+            gsamples_per_s=round(lanes * n / ms / 1e6, 2))
+        timing(f"dfpwm_encode_window_{label}", ms, float("nan"),
+               lanes * n * OPS_PER_SAMPLE["dfpwm_encode"], lanes * n * 9 / 8)
+        del x
+    return {"dfpwm_encode": row}
 
 
 def main() -> None:

@@ -158,6 +158,37 @@ def test_mixed_rate_fleet_matches_jax():
         assert_checkpoints_equal(g, w)
 
 
+NONFINITE_GAINS = (float("nan"), 3e38, -3e38, 1e30, -1e30)
+
+
+def test_nonfinite_gains_match_jax():
+    """``set_volume`` with NaN and with gains that overflow float32 in the
+    ramp or at the int8 scaling (0 * inf is NaN there), at rest and as a
+    ramp, on identity-rate (the fused decode + DSP's plain version) and 32 kHz
+    (``dsp_chain``'s int8 cast) DFPWM lanes: the port's windows equal the JAX
+    engine's jitted step, where XLA's float -> int8 cast saturates and gives
+    0 for NaN. The 32 kHz lanes run a second window, at rest after the ramp."""
+    rng = np.random.default_rng(60)
+    lanes = 4 * len(NONFINITE_GAINS)
+    feeds = [rng.integers(0, 256, 4500, dtype=np.uint8).tobytes() for _ in range(lanes)]
+    runs = []
+    for module, kw in ((batch, {"device": "cpu"}), (jax_batch, {})):
+        specs = [module.LaneSpec("dfpwm", 48000 if i % 2 == 0 else 32000) for i in range(lanes)]
+        eng = module.BatchStreamEngine(specs, **kw)
+        for i in range(lanes):
+            eng.set_volume(i, NONFINITE_GAINS[i // 4], ramp=i % 4 >= 2)
+        feed_lanes(eng, feeds)
+        runs.append((collect(eng), [eng.checkpoint(lane) for lane in range(lanes)]))
+    (got, got_ck), (want, want_ck) = runs
+    assert len(got) == 2
+    assert_steps_equal(got, want)
+    for g, w in zip(got_ck, want_ck):
+        np.testing.assert_equal(g, w)  # a NaN volume equals itself here
+    first = got[0][0]
+    assert not first[:4].any()  # a NaN gain is silence, at rest and as a ramp
+    assert first[4:8].max() == 127 and first[4:8].min() == -128  # 3e38: both rails
+
+
 def test_reset_lane_mid_window_matches_jax():
     """reset_lane on a lane whose group FIFO still holds samples: its read
     cursor skips the stale columns (the per-lane-cursor pop)."""

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from aukit_tpu_torch import (BatchDfpwmDecoder, BatchDfpwmEncoder, BatchEncodeEngine,
-                             BatchStreamEngine, EncodeSpec, LaneSpec, transcode_fleet)
+                             BatchStreamEngine, EncodeSpec, LaneSpec, encode_windows_many,
+                             transcode_fleet)
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.kernels import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
                                      dfpwm_decode_kernel, dfpwm_decode_ref, dfpwm_encode_kernel,
@@ -45,6 +46,8 @@ kernel_cases = load_sibling("torch_kernel_cases")
 # the case names, from the builders run on the CPU (cheap: a few hundred lanes)
 DSP_CASES = [c[0] for c in kernel_cases.dsp_cases("cpu")]
 LPC_CASES = [c[0] for c in kernel_cases.lpc_cases("cpu")]
+ENCODE_CASES = [c[0] for c in kernel_cases.encode_cases("cpu")]
+IIR_CASES = [c[0] for c in kernel_cases.iir_cases("cpu")]
 
 
 def random_state(rng, lanes, device):
@@ -118,6 +121,31 @@ def test_lpc_restore_kernel_paths_match_plain(name):
     got = lpc_restore_kernel(*args, K)
     torch.cuda.synchronize()
     assert torch.equal(got, lpc_restore_ref(*args, K))
+
+
+@pytest.mark.parametrize("name", ENCODE_CASES)
+def test_encode_kernel_paths_match_plain(name):
+    """Every path of the pipelined encode kernel: tame states (the
+    two-target step) and wild ones (the general predictor), levels on both
+    rails, every copy and store width, ragged tiles, a misaligned base,
+    chained calls: bytes and state bit-equal."""
+    _, calls, st = next(c for c in kernel_cases.encode_cases("cuda") if c[0] == name)
+    ref_st = st
+    for levels in calls:
+        out, st = dfpwm_encode_kernel(levels, st)
+        ref, ref_st = dfpwm_encode_ref(levels, ref_st)
+        assert_same(out, st, ref, ref_st)
+
+
+@pytest.mark.parametrize("name", IIR_CASES)
+def test_iir_zero_kernel_paths_match_plain(name):
+    """Every path of the pipelined lowpass kernel: row lengths from one
+    sample to a 44.1 kHz block's 4458, every copy width, a misaligned base,
+    alphas near 0 and 1, denormal inputs and outputs: bit-equal."""
+    _, x, alpha = next(c for c in kernel_cases.iir_cases("cuda") if c[0] == name)
+    got = iir_zero_kernel(x, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, iir_zero_ref(x, alpha))
 
 
 def test_decode_kernel_golden_vectors():
@@ -490,3 +518,36 @@ def test_per_channel_transcode_on_cuda_matches_cpu():
         outs.append(transcode_fleet(dec, BatchEncodeEngine([EncodeSpec("dfpwm", 2)] * 4,
                                                            device=device)))
     assert outs[0] == outs[1] and all(b and len(b) % 12000 == 0 for b in outs[0])
+
+
+def test_encode_windows_many_on_streams_matches_in_sequence():
+    """Three encoders fed side by side on CUDA streams (mono DFPWM, stereo
+    DFPWM, stereo pcm16, two windows each, a lane masked in the second):
+    bytes, byte counts, masks, positions and checkpoints equal the same
+    engines called one after the other, and the launch count is the same."""
+    rng = np.random.default_rng(12)
+    specs = ([EncodeSpec("dfpwm")] * 70, [EncodeSpec("dfpwm", 2)] * 40, [EncodeSpec("pcm16", 2)] * 40)
+    wins = [(rng.integers(-128, 128, (70, 4000)).astype(np.int8),
+             rng.integers(-128, 128, (40, 2, 4000)).astype(np.int8)) for _ in range(2)]
+    runs, launches = [], []
+    for many in (True, False):
+        engines = [BatchEncodeEngine(sp, device="cuda") for sp in specs]
+        before = dfpwm_encode_kernel.launches
+        steps = []
+        for k, (wm, ws) in enumerate(wins):
+            mm, ms = np.ones(70, bool), np.ones(40, bool)
+            mm[3] = ms[5] = k == 0
+            jobs = [(engines[0], torch.tensor(wm, device="cuda"), mm),
+                    (engines[1], torch.tensor(ws, device="cuda"), ms),
+                    (engines[2], torch.tensor(ws, device="cuda"), ms)]
+            rs = encode_windows_many(jobs) if many else [e.encode_windows(w, m) for e, w, m in jobs]
+            steps.append([(r[0].cpu().numpy(), *r[1:]) for r in rs])
+        launches.append(dfpwm_encode_kernel.launches - before)
+        runs.append((steps, [[e.checkpoint(i) for i in range(e.lanes)] for e in engines]))
+    assert launches == [4, 4]
+    for got_step, want_step in zip(runs[0][0], runs[1][0]):
+        for got, want in zip(got_step, want_step):
+            assert all(np.array_equal(a, b) for a, b in zip(got, want, strict=True))
+    for got_engine, want_engine in zip(runs[0][1], runs[1][1]):
+        for got, want in zip(got_engine, want_engine):
+            assert got["codec_state"] == want["codec_state"] and got["samples_in"] == want["samples_in"]

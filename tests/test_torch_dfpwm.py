@@ -19,6 +19,7 @@ from aukit_tpu.codecs.dfpwm import encode_dfpwm_bytes as jax_encode_bytes
 from aukit_tpu.kernels import dfpwm_pallas as kp
 from aukit_tpu_torch.codecs.dfpwm import (DfpwmState, decode_dfpwm_bytes, dfpwm_decode,
                                           dfpwm_encode, encode_dfpwm_bytes)
+from tests import torch_kernel_cases as kernel_cases
 from aukit_tpu_torch.interop import dfpwm_state_from_numpy, dfpwm_state_to_numpy
 from aukit_tpu_torch.kernels.dfpwm_cuda import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
                                                 dfpwm_decode_kernel, dfpwm_decode_ref)
@@ -170,6 +171,32 @@ def test_decode_dsp_ref_edges_match_pallas_interpret(case):
     assert_state_equal(jst, pst)
     if case == "ramp_over_the_rails":
         assert got.min() == -128 and got.max() == 127
+
+
+DSP_CASES = {name: rest for name, *rest in kernel_cases.dsp_cases("cpu")}
+
+
+@pytest.mark.parametrize("name", sorted(DSP_CASES))
+def test_kernel_cases_plain_versions_match_pallas_interpret(name):
+    """Every case the card holds kernels (a) and (b) to (their plain
+    versions there, max |error| 0), on CPU tensors through the plain
+    versions and through the JAX package's Pallas kernels in interpret mode:
+    int8 outputs and state bit-equal, the gains that overflow to +-inf and
+    the NaN gains included (XLA's float -> int8 cast saturates and gives 0
+    for NaN, as torch's clamp and cast do on the CPU)."""
+    data, st, mask, gain = DSP_CASES[name]
+    jst = JaxState(*(jnp.asarray(leaf.numpy()) for leaf in st.leaves()))
+    data_np = data.numpy()
+    want, want_st = kp.dfpwm_decode_dsp_pallas(
+        data_np, jst, ALPHA_48K, mask=None if mask is None else mask.numpy(),
+        gain=None if gain is None else tuple(g.numpy() for g in gain), interpret=True)
+    got, got_st = dfpwm_decode_dsp_kernel(data, st, ALPHA_48K, mask=mask, gain=gain)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert_state_equal(want_st, got_st)
+    want, want_st = kp.dfpwm_decode_pallas(data_np, jst, interpret=True)
+    got, got_st = dfpwm_decode_kernel(data, st)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert_state_equal(want_st, got_st)
 
 
 def test_cpu_tensors_take_the_plain_versions():

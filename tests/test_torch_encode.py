@@ -22,6 +22,7 @@ from aukit_tpu_torch.containers import wav
 from aukit_tpu_torch.kernels import dfpwm_cuda
 from aukit_tpu_torch.ops import pcmcode
 from aukit_tpu_torch.stream import batch_encode
+from tests import torch_kernel_cases as kernel_cases
 from tests.test_torch_batch import to_numpy
 
 CHUNK = 800  # samples per host-fed step: the plain encode loop costs ~80 us a sample
@@ -71,6 +72,38 @@ def test_encode_plain_version_matches_jax_scan_and_pallas():
     # the decoder-only leaves pass through untouched
     np.testing.assert_array_equal(st.previous_charge.numpy(), leaves[3])
     np.testing.assert_array_equal(st.lowpass.numpy(), leaves[4])
+
+
+ENCODE_CASES = {name: rest for name, *rest in kernel_cases.encode_cases("cpu")}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODE_CASES))
+def test_kernel_cases_plain_version_matches_pallas_interpret(name):
+    """Every case the card holds kernel (c) to (its plain version there, max
+    |error| 0), on CPU tensors through the plain version, through the JAX
+    scan ``dfpwm_encode`` and through ``dfpwm_encode_pallas(interpret=True)``:
+    bytes and state bit-equal over the chained calls, states no stream
+    produces included. The Pallas kernel compares the bit with the previous
+    one as ``bit + previous != 1``, which holds for 0 and 1 only, so a lane
+    that starts from any other previous bit is held to the scan alone."""
+    calls, st = ENCODE_CASES[name]
+    leaves = [jnp.asarray(leaf.numpy()) for leaf in st.leaves()]
+    st_scan = st_pallas = jax_dfpwm.DfpwmState(*leaves)
+    in_domain = np.isin(st.previous_bit.numpy(), (0, 1))
+    assert in_domain.all() or name == "wild_state"
+    for k, levels in enumerate(calls):
+        got, st = dfpwm_cuda.dfpwm_encode_kernel(levels, st)
+        want, st_scan = jax_dfpwm.dfpwm_encode(jnp.asarray(levels.numpy(), jnp.int32), st_scan)
+        want_p, st_pallas = dfpwm_pallas.dfpwm_encode_pallas(levels.numpy(), st_pallas,
+                                                             interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"call {k}")
+        np.testing.assert_array_equal(got.numpy()[in_domain], np.asarray(want_p)[in_domain],
+                                      err_msg=f"call {k}")
+        for g, w, wp in zip(interop.dfpwm_state_to_numpy(st), jax.tree_util.tree_leaves(st_scan),
+                            jax.tree_util.tree_leaves(st_pallas), strict=True):
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"call {k}")
+            np.testing.assert_array_equal(g[in_domain], np.asarray(wp)[in_domain],
+                                          err_msg=f"call {k}")
 
 
 def test_encode_wrapper_counts_and_checks():
@@ -467,6 +500,39 @@ def test_encode_windows_mixed_groups_and_lut_vs_float():
     # an ungained engine is exact
     plain = glue([("pcm16",)], [(win[:1], np.ones(1, bool))])
     assert plain[0][0][0][0].tobytes() == solo
+
+
+def test_encode_windows_many_equals_the_calls_in_sequence():
+    """``encode_windows_many`` over three engines (mono DFPWM, stereo DFPWM,
+    stereo pcm16; two windows, a lane masked in the second): on the CPU it
+    is the calls in sequence, and both equal the JAX engines' results."""
+    rng = np.random.default_rng(21)
+    shapes = ((batch_encode.EncodeSpec("dfpwm"), 5, 1), (batch_encode.EncodeSpec("dfpwm", 2), 3, 2),
+              (batch_encode.EncodeSpec("pcm16", 2), 3, 2))
+    wins = [[rng.integers(-128, 128, (lanes, ch, 320)).astype(np.int8) for _s, lanes, ch in shapes]
+            for _ in range(2)]
+    runs = []
+    for how in ("many", "sequence", "jax"):
+        module = jax_encode if how == "jax" else batch_encode
+        kw = {} if how == "jax" else {"device": "cpu"}
+        engines = [module.BatchEncodeEngine([module.EncodeSpec(sp.codec, sp.channels)] * lanes, **kw)
+                   for sp, lanes, _ch in shapes]
+        steps = []
+        for k, ws in enumerate(wins):
+            masks = [np.ones(lanes, bool) for _s, lanes, _c in shapes]
+            masks[0][1] = masks[1][2] = k == 0
+            jobs = [(e, windows_for(module, w), m) for e, w, m in zip(engines, ws, masks)]
+            rs = (batch_encode.encode_windows_many(jobs) if how == "many"
+                  else [e.encode_windows(w, m) for e, w, m in jobs])
+            steps.append([(to_numpy(r[0]), *r[1:]) for r in rs])
+        runs.append((steps, [e.checkpoint(0) for e in engines]))
+    for steps, ckpts in runs[1:]:
+        for got_step, want_step in zip(runs[0][0], steps):
+            for got, want in zip(got_step, want_step):
+                for a, b in zip(got, want, strict=True):
+                    np.testing.assert_array_equal(a, b)
+        for got, want in zip(runs[0][1], ckpts):
+            assert_encoder_checkpoints_equal(got, want)
 
 
 def test_encode_windows_masked_lane_state_freeze():

@@ -17,6 +17,7 @@ from aukit_tpu_torch.codecs import flac
 from aukit_tpu_torch.kernels import flac_cuda, iir_cuda
 from aukit_tpu_torch.native import flacbits
 from tests import fixtures
+from tests import torch_kernel_cases as kernel_cases
 from tests.test_flac_fleet import make_flac
 
 
@@ -323,3 +324,50 @@ def test_iir_zero_ref_matches_jitted_pallas(alpha):
         y = np.float32(a) * x[:, t] + np.float32(c) * y
         plain[:, t] = y
     assert not np.array_equal(plain, want)
+
+
+LPC_CASES = {name: rest for name, *rest in kernel_cases.lpc_cases("cpu")}
+IIR_CASES = {name: rest for name, *rest in kernel_cases.iir_cases("cpu")}
+
+
+@pytest.mark.parametrize("name", sorted(LPC_CASES))
+def test_kernel_cases_lpc_plain_version_matches_pallas_interpret(name):
+    """Every case the card holds kernel (g) to (its plain version there, max
+    |error| 0), on CPU tensors through the plain version and through the
+    Pallas kernel in interpret mode, bit for bit. The limb kernel clamps its
+    shift amounts to 31, so rows with a shift below -30 lie outside its
+    domain (FLAC's field is 5 bits, signed): those are held to the int64
+    oracle instead, shifts clamped to 63 as the CUDA kernel does, up to each
+    row's block, wrapped to int32."""
+    args, K = LPC_CASES[name]
+    got = flac_cuda.lpc_restore_kernel(*args, K).numpy()
+    vals, orders, shifts, blocks, coefs = (a.numpy() for a in args)
+    pallas = np.asarray(fp.lpc_restore_pallas(vals, orders, shifts, blocks, coefs,
+                                              interpret=True, K=K))
+    inside = shifts >= -30
+    np.testing.assert_array_equal(got[inside], pallas[inside])
+    if not inside.all():
+        assert name == "wide_shifts"
+        ref = jax_flac.restore_lpc_batch(vals[~inside], coefs[~inside],
+                                         np.clip(shifts[~inside], -63, 63), orders[~inside])
+        for row, want, b in zip(got[~inside], ref.astype(np.int32), blocks[~inside]):
+            np.testing.assert_array_equal(row[:b], want[:b])
+
+
+@pytest.mark.parametrize("name", sorted(IIR_CASES))
+def test_kernel_cases_iir_plain_version_matches_jitted_pallas(name):
+    """Every case the card holds kernel (h) to, on CPU tensors through the
+    plain version and through the jitted JAX kernel in interpret mode, bit
+    for bit: row lengths on and off the 16-byte grid, alphas near 0 and 1.
+    XLA's CPU code flushes denormals to zero, inputs and results; the port
+    keeps IEEE's gradual underflow (plain version and CUDA kernel alike), so
+    in the two denormal cases the port's outputs below the smallest normal
+    float32 are the reference's zeros, and every other output is equal."""
+    x, alpha = IIR_CASES[name]
+    want = np.asarray(jax.jit(iir_zero_lanes, static_argnums=(1, 2))(x.numpy(), alpha, True))
+    got = iir_cuda.iir_zero_kernel(x, alpha).numpy()
+    if name in ("denormal_inputs", "decay_into_denormals"):
+        denormal = (got != 0) & (np.abs(got) < np.finfo(np.float32).tiny)
+        assert denormal.any() and not want[denormal].any()
+        got = np.where(denormal, np.float32(0), got)
+    np.testing.assert_array_equal(got, want)

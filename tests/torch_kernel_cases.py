@@ -1,9 +1,14 @@
 """Inputs that reach every path of the port's redesigned CUDA kernels: the
-fused DFPWM decode + DSP (``csrc/dfpwm.cu``) and the FLAC LPC restore
-(``csrc/flac.cu`` on ``scan_rows_async``). One definition for the card tests
-(``tests/test_torch_cuda.py``) and for ``chip_smoke.py``, which both load
-this file by path and hold each case's kernel output against the plain
-version, max |error| 0. Imports numpy and torch only.
+fused DFPWM decode + DSP and the DFPWM encode (``csrc/dfpwm.cu``), the FLAC
+LPC restore (``csrc/flac.cu``) and the zero-state lowpass (``csrc/iir.cu``),
+the last three on the pipelined skeleton of ``csrc/lane_scan.cuh``. One
+definition for the card tests (``tests/test_torch_cuda.py``) and for
+``chip_smoke.py``, which both load this file by path and hold each case's
+kernel output against the plain version, max |error| 0, and for the CPU tests
+(``tests/test_torch_dfpwm.py``, ``test_torch_encode.py``,
+``test_torch_flac.py``), which hold the plain version's output on the same
+cases (``device="cpu"``) against the JAX package. Imports numpy and torch
+only.
 """
 
 from __future__ import annotations
@@ -177,3 +182,96 @@ def lpc_cases(device="cuda"):
     args[3][:6] = [0, 1, 7, 8, 9, 500]
     args[1][6:9] = [-1, -7, 0]
     yield "edge_blocks_and_orders", tuple(_i32(a, device) for a in args), 8
+
+
+def _levels(rng, lanes: int, n: int) -> np.ndarray:
+    """Random int8 levels with rows pinned at the rails, so the charge
+    reaches 127 and -128 and ``level == charge == 127`` decides bits: every
+    fifth lane sits at 127, the next at -128, the next goes to 127 halfway."""
+    levels = rng.integers(-128, 128, (lanes, n)).astype(np.int8)
+    levels[0::5] = 127
+    levels[1::5] = -128
+    levels[2::5, n // 2:] = 127
+    return levels
+
+
+def encoder_wild_state(rng, lanes: int, device) -> DfpwmState:
+    """As ``wild_state`` for the encoder's three words: of every four lanes
+    one has a charge outside [-128, 127], one a strength outside [0, 1023],
+    one a previous bit that is neither 0 nor 1, one is tame."""
+    st = [a.cpu().numpy().copy() for a in tame_state(rng, lanes, "cpu").leaves()]
+    kind = np.arange(lanes) % 4
+    st[0][kind == 0] = rng.choice([-100000, -4000, -129, 128, 300, 90000], lanes)[kind == 0]
+    st[1][kind == 1] = rng.choice([-3, 1024, 5000], lanes)[kind == 1]
+    st[2][kind == 2] = rng.choice([-1, 2, 7], lanes)[kind == 2]
+    return _state(st, device)
+
+
+def encode_cases(device="cuda"):
+    """-> (name, [levels i8[L, N] of each chained call], state) of the encode
+    kernel: tame and wild states, levels on both rails, lanes that are not a
+    multiple of the block, byte counts with whole and ragged tiles and every
+    store width, rows on and off the 16-byte grid."""
+    rng = np.random.default_rng(52)
+
+    def lv(lanes, nbytes):
+        return torch.tensor(_levels(rng, lanes, 8 * nbytes), device=device)
+
+    # byte counts: 1 and 7 (byte stores, 4-byte copies), 16 and 48 and 96
+    # (16-byte stores; whole tiles and a ragged one), 34 (even: 16-byte
+    # copies, byte stores), 36 (4-byte stores), 33 (odd: rows off the grid)
+    for lanes, nbytes in ((1, 1), (5, 7), (3, 16), (70, 34), (65, 48), (130, 96), (33, 36),
+                          (40, 33)):
+        yield f"shape_{lanes}x{nbytes}", [lv(lanes, nbytes)], tame_state(rng, lanes, device)
+    # states no stream produces: the general predictor, lane by lane
+    yield "wild_state", [lv(300, 40), lv(300, 25)], encoder_wild_state(rng, 300, device)
+    # the state chained over two calls, from the rails: charge 127 under
+    # levels of 127, charge -128 under levels of -128
+    lanes = 67
+    st = tame_state(rng, lanes, "cpu")
+    q = st.charge.numpy().copy()
+    q[0::5], q[1::5] = 127, -128
+    st = _state((q, *(a.numpy() for a in st.leaves()[1:])), device)
+    yield "chained_from_the_rails", [lv(lanes, 64), lv(lanes, 32), lv(lanes, 3)], st
+    # strengths at both ends of their range, and below the floor
+    st = tame_state(rng, lanes, "cpu")
+    s = st.strength.numpy().copy()
+    s[:8] = [0, 1, 7, 8, 9, 1022, 1023, 512]
+    st = _state((st.charge.numpy(), s, *(a.numpy() for a in st.leaves()[2:])), device)
+    yield "strength_ends", [lv(lanes, 32)], st
+    # a base aligned to 4 but not to 16 bytes under rows that would be wide
+    lanes, nbytes = 9, 32
+    flat = torch.tensor(_levels(rng, 1, lanes * nbytes * 8 + 8), device=device).reshape(-1)
+    yield "misaligned_base", [flat[4: 4 + lanes * nbytes * 8].view(lanes, nbytes * 8)], \
+        tame_state(rng, lanes, device)
+
+
+def iir_cases(device="cuda"):
+    """-> (name, x f32[R, T], alpha) of the zero-state lowpass: row lengths
+    of one sample, within one group of 8, one tile, ragged tiles, 4096 and
+    a 44.1 kHz block's 4458 (off the 16-byte grid); rows fewer than a block
+    and not a multiple of it; a misaligned base; alphas near 0 and 1;
+    denormal inputs and an output that decays into the denormals. Finite
+    values only: the plain version's fused multiply-add (``fma_ref``) takes
+    the exact error of a float64 sum, which is NaN once the sum is infinite,
+    so it is exact for finite operands only."""
+    rng = np.random.default_rng(53)
+
+    def rows(R, T, scale=0.5):
+        return torch.tensor((rng.standard_normal((R, T)) * scale).astype(np.float32),
+                            device=device)
+
+    for R, T in ((3, 1), (33, 4), (5, 7), (64, 64), (65, 70), (37, 257), (40, 4096), (35, 4458)):
+        yield f"shape_{R}x{T}", rows(R, T), 0.9568
+    for alpha in (1e-6, 0.0123, 0.5, 1.0 - 1e-6, 1.0):
+        yield f"alpha_{alpha}", rows(34, 200), alpha
+    # T % 4 == 0 under a base that is not 16-byte aligned
+    flat = rows(1, 20 * 128 + 1).reshape(-1)
+    yield "misaligned_base", flat[1:].view(20, 128), 0.6
+    # denormal inputs, and large ones that decay to denormals under c ~ 1e-3
+    x = rows(36, 130, 1e-41)
+    x[::2, :] *= 1e-3
+    yield "denormal_inputs", x, 0.12
+    x = rows(36, 130, 1e30)
+    x[:, 3:] = 0.0
+    yield "decay_into_denormals", x, 0.999

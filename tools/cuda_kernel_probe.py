@@ -5,21 +5,29 @@ toolkit (imports torch, numpy, aukit_tpu_torch and chip_smoke's helpers; no
 JAX):
 
     python3 tools/cuda_kernel_probe.py sass  [--csrc DIR] [--out DIR] [PATTERN ...]
+    python3 tools/cuda_kernel_probe.py check [--csrc DIR]
     python3 tools/cuda_kernel_probe.py bench [--csrc DIR] [--iters N]
 
 ``sass`` builds the kernel library, prints ``ptxas -v``'s registers, spills
 and shared memory of every kernel whose demangled name contains one of the
-patterns (default: the DFPWM decode instantiations and the LPC restore), and
-from ``cuobjdump -sass`` the instruction count of each of its loops (a loop
-is a backward branch: the instructions from its target to the branch), with
-the opcode histogram of the largest loop. The DFPWM byte loop holds 8
-samples, so its count / 8 is the instructions per sample; the LPC loops hold
-as many samples as the source unrolls. ``--out`` keeps each kernel's SASS in
-a file.
+patterns (default: the DFPWM decode instantiations, the DFPWM encode, the
+LPC restore and the zero-state lowpass), and from ``cuobjdump -sass`` the
+instruction count of each of its loops (a loop is a backward branch: the
+instructions from its target to the branch), with the opcode histogram of
+the largest loop. The DFPWM decode loop holds 16 samples (two bytes), the
+encode loop 32 (one word of bits out; the first version's held 8), so the
+count over that is the instructions per sample; the LPC loops hold as many
+samples as the source unrolls, the lowpass's tile 64. ``--out`` keeps each
+kernel's SASS in a file.
 
-``bench`` times kernels (a), (b) and (g) alone by CUDA events at the shapes
-chip_smoke.py times them (random bytes instead of encoded tones), after
-checking each against its plain version at a small shape.
+``check`` holds each kernel against its plain version and times nothing:
+(a), (b) and (g) at a small shape, (c) and (h) on every case of
+tests/torch_kernel_cases.py. ``bench`` does the same, then times kernels
+(a), (b), (c), (g) and (h) alone by CUDA events at the
+shapes chip_smoke.py times them (random bytes instead of encoded tones; (c)
+also at a transcode window's two launches, (h) at a 48 kHz and a 44.1 kHz
+fleet step's rows), and a transcode window's three encoders on windows that
+live on the card, in sequence and through ``encode_windows_many``.
 
 ``--csrc DIR`` builds another directory of sources (an earlier commit's
 ``aukit_tpu_torch/csrc``) instead, to compare two versions on one card in
@@ -45,8 +53,10 @@ import chip_smoke as cs  # noqa: E402
 from aukit_tpu_torch.kernels import _build  # noqa: E402
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc  # noqa: E402
 from aukit_tpu_torch.kernels import flac_cuda as kg  # noqa: E402
+from aukit_tpu_torch.kernels import iir_cuda as kh  # noqa: E402
 
-DEFAULT_PATTERNS = ("dfpwm_decode_kernel", "lpc_restore_kernel")
+DEFAULT_PATTERNS = ("dfpwm_decode_kernel", "dfpwm_encode_kernel", "lpc_restore_kernel",
+                    "iir_zero_kernel")
 
 
 def ptxas_report(log: str) -> dict:
@@ -114,11 +124,8 @@ def cmd_sass(args) -> None:
             (Path(args.out) / (re.sub(r"\W+", "_", name) + ".sass")).write_text(text + "\n")
 
 
-def cmd_bench(args) -> None:
-    smi = cs.phase_device()
-    _build.load()
-    rng = np.random.default_rng(21)
-
+def checks(rng) -> None:
+    """Each kernel against its plain version, max |error| 0."""
     # right before fast: each kernel against its plain version at a small shape
     lanes, nbytes = 200, 77
     data = torch.tensor(rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8), device="cuda")
@@ -140,6 +147,33 @@ def cmd_bench(args) -> None:
         ok = torch.equal(kg.lpc_restore_kernel(*a), kg.lpc_restore_ref(*a))
         cs.say("probe_check", kernel="lpc_restore", rows=rows, T=T, order=order, equal=ok)
         cs.check(ok, "lpc_restore kernel == plain")
+
+    cases = cs.load_test_module("torch_kernel_cases")
+    for name, calls, st in cases.encode_cases("cuda"):
+        ref_st = st
+        for x in calls:
+            (out, st), (ref, ref_st) = kc.dfpwm_encode_kernel(x, st), kc.dfpwm_encode_ref(x, ref_st)
+            ok = cs.same(out, ref)[0] and cs.same(st, ref_st)[0]
+            cs.say("probe_check", kernel="dfpwm_encode", case=name, equal=ok)
+            cs.check(ok, f"dfpwm_encode kernel == plain on case {name}")
+    for name, x, alpha in cases.iir_cases("cuda"):
+        ok = torch.equal(kh.iir_zero_kernel(x, alpha), kh.iir_zero_ref(x, alpha))
+        cs.say("probe_check", kernel="iir_zero", case=name, equal=ok)
+        cs.check(ok, f"iir_zero kernel == plain on case {name}")
+
+
+def cmd_check(args) -> None:
+    smi = cs.phase_device()
+    _build.load()
+    checks(np.random.default_rng(21))
+    print(smi, flush=True)
+
+
+def cmd_bench(args) -> None:
+    smi = cs.phase_device()
+    _build.load()
+    rng = np.random.default_rng(21)
+    checks(rng)
 
     def best(fn) -> float:
         fn()
@@ -163,6 +197,24 @@ def cmd_bench(args) -> None:
                    data, st, cs.ALPHA_48K, live, gain)), 4))
         del data
     torch.cuda.empty_cache()
+    # (c): full width, then a transcode window's two launches (mono rows of
+    # one second, interleaved stereo rows of twice the length)
+    for lanes, n in ((full, 48000), (cs.TRANSCODE_MONO, 48000), (cs.TRANSCODE_STEREO, 96000)):
+        x = torch.randint(-128, 128, (lanes, n), dtype=torch.int8, device="cuda")
+        st = cs.DfpwmState.zeros(lanes, "cuda")
+        cs.say("probe_time", kernel="dfpwm_encode", lanes=lanes, samples=n,
+               ms=round(best(lambda: kc.dfpwm_encode_kernel(x, st)), 4))
+        del x
+    torch.cuda.empty_cache()
+    # (h): full width, then a fleet step's rows on and off the 16-byte grid
+    for rows, T in ((cs.LPC_ROWS, cs.FLAC_N), (cs.LPC_FLEET_ROWS, cs.FLAC_N),
+                    (cs.IIR_44K_ROWS, cs.IIR_44K_LEN), (cs.LPC_FLEET_ROWS, cs.IIR_44K_LEN),
+                    (2048, cs.FLAC_N)):
+        x = cs.iir_args(rng, rows, T)
+        cs.say("probe_time", kernel="iir_zero", rows=rows, samples=T,
+               ms=round(best(lambda: kh.iir_zero_kernel(*x)), 4))
+        del x
+    torch.cuda.empty_cache()
     for rows in (cs.LPC_ROWS, 7168, 2048):
         a = cs.lpc_bench_args(rng, rows, cs.FLAC_N)
         cs.say("probe_time", kernel="lpc_restore", rows=rows, samples=cs.FLAC_N, K=8,
@@ -176,6 +228,18 @@ def cmd_bench(args) -> None:
         a = cs.lpc_args(rng, 8192, 4096, K)
         cs.say("probe_time", kernel="lpc_restore", rows=8192, samples=4096, K=K,
                ms=round(best(lambda: kg.lpc_restore_kernel(*a, K=K)), 4))
+    # a transcode window's three encoders on windows that live on the card:
+    # one after the other on one stream, then side by side on streams
+    torch.cuda.empty_cache()
+    mono, stereo = cs.TRANSCODE_MONO, cs.TRANSCODE_STEREO
+    engines = cs.transcode_engines("cuda", mono, stereo)[2:]
+    wm = torch.randint(-128, 128, (mono, 48000), dtype=torch.int8, device="cuda")
+    ws = torch.randint(-128, 128, (stereo, 2, 48000), dtype=torch.int8, device="cuda")
+    jobs = [(engines[0], wm, np.ones(mono, bool)), (engines[1], ws, np.ones(stereo, bool)),
+            (engines[2], ws, np.ones(stereo, bool))]
+    cs.say("probe_time", case="transcode_window_encoders", mono_lanes=mono, stereo_lanes=stereo,
+           in_sequence_ms=round(best(lambda: [e.encode_windows(w, m) for e, w, m in jobs]), 4),
+           on_streams_ms=round(best(lambda: cs.encode_windows_many(jobs)), 4))
     print(smi, flush=True)
 
 
@@ -186,6 +250,8 @@ def main() -> None:
     p.add_argument("--out")
     p.add_argument("patterns", nargs="*")
     p.set_defaults(fn=cmd_sass)
+    p = sub.add_parser("check")
+    p.set_defaults(fn=cmd_check)
     p = sub.add_parser("bench")
     p.add_argument("--iters", type=int, default=5)
     p.set_defaults(fn=cmd_bench)
