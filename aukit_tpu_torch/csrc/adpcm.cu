@@ -14,16 +14,26 @@
 // with its state in registers and loops over the T samples it is given;
 // there is no time grid, no n_valid guard and no TIME_TILE/UNROLL (the
 // kernel decodes exactly T samples). Rows are staged through shared memory
-// (lane_scan.cuh).
+// (lane_scan.cuh): the IMA decode on the first skeleton, scan_rows; the MS
+// ADPCM decode on the pipelined window_rows, whose output side it has (a
+// byte in, an int16 out: the lane reads 16 nibbles as one 16-byte word of
+// shared memory and writes their samples as two). Its engine rows, 1010
+// bytes, start on 2-byte boundaries, off every grid an asynchronous copy
+// knows; window_rows cuts the tiles on the 16-byte grid of device memory
+// instead of at the row's start, so such rows move 16 bytes a copy like any
+// other, and only a row's first and last tile step sample by sample.
 //
 // Bounds on the H100. Per sample a lane reads 1 byte and writes 2, so at
 // the engine's hundreds of thousands of lanes the bytes would allow ~1e12
 // samples/s; the dependent chain per sample (IMA: a shared-memory table
-// load, the index update and a clamped add, ~12 ops; MS: two multiplies, a
-// clamped multiply-add and the adaption, ~15 ops) bounds it first, hidden
-// only by the warps in flight. IMA's 89-entry step table lives in shared
-// memory: each lane looks up its own entry, and __constant__ memory would
-// serialise the warp's divergent addresses.
+// load, the index update and a clamped add; MS: the newest sample's
+// multiply-add, a shift, the add of nibble x delta and a two-sided clamp;
+// the delta's own chain, table load, multiply, shift, clamp, runs beside it)
+// bounds a warp, hidden only by the warps in flight. IMA's 89-entry step
+// table and MS ADPCM's 16 adaption factors live in shared memory: each lane
+// looks up its own entry, and __constant__ memory would serialise the warp's
+// divergent addresses (MS ADPCM's 16 entries of 8 bytes, the nibble's value
+// beside its factor, never conflict: a bank pair each).
 //
 // Exactness. int32 semantics of the Pallas kernels: arithmetic right
 // shifts (floors), clamps, and int32 wraparound on adds and multiplies
@@ -70,22 +80,52 @@ struct ImaLane {
   }
 };
 
-// One sample of _ms_kernel (msadpcm_pallas.py:59-78), with the adaption
-// table as cumulative threshold adds on |nib| (_adapt, :39-45).
+// The adaption factor by nib & 15 (_adapt, msadpcm_pallas.py:39-45: 230 and
+// the cumulative thresholds on |nib|; nibble -8 is index 8).
+__constant__ int MS_ADAPT[16] = {230, 230, 230, 230, 307, 409, 512, 614,
+                                 768, 614, 512, 409, 307, 230, 230, 230};
+
+// One sample of _ms_kernel (msadpcm_pallas.py:59-78).
 struct MsLane {
+  const int2* table;  // (signed nibble, MS_ADAPT) by nib & 15, in shared memory
   int s1, s2, delta, c1, c2;
 
-  __device__ __forceinline__ int16_t step(int8_t nib8) {
-    const int nib = nib8;
+  __device__ __forceinline__ int sample(int nib, int adapt) {
     const int lin = wadd(wmul(s1, c1), wmul(s2, c2)) >> 8;
     const int pred = clamp_int(wadd(lin, wmul(nib, delta)), -32768, 32767);
-    const int m = nib < 0 ? -nib : nib;
-    const int adapt = 230 + (m >= 4 ? 77 : 0) + (m >= 5 ? 102 : 0) + (m >= 6 ? 103 : 0) +
-                      (m >= 7 ? 102 : 0) + (nib == -8 ? 154 : 0);
     delta = clamp_int(wmul(adapt, delta) >> 8, 16, DELTA_CAP);
     s2 = s1;
     s1 = pred;
-    return static_cast<int16_t>(pred);
+    return pred;
+  }
+
+  __device__ __forceinline__ int16_t step(int8_t nib) {
+    return static_cast<int16_t>(sample(nib, table[nib & 15].y));
+  }
+
+  // Four nibbles of one register to four samples of two. One 8-byte load
+  // gives a nibble's sign-extended value and its adaption factor: its
+  // address is the nibble's byte of (v << 3) & 0x78787878.
+  __device__ __forceinline__ int2 quad(unsigned v) {
+    const unsigned at = (v << 3) & 0x78787878u;
+    const char* base = reinterpret_cast<const char*>(table);
+    const int2 e0 = *reinterpret_cast<const int2*>(base + (at & 0xff));
+    const int2 e1 = *reinterpret_cast<const int2*>(base + __byte_perm(at, 0, 0x4441));
+    const int2 e2 = *reinterpret_cast<const int2*>(base + __byte_perm(at, 0, 0x4442));
+    const int2 e3 = *reinterpret_cast<const int2*>(base + (at >> 24));
+    const int a = sample(e0.x, e0.y);
+    const int b = sample(e1.x, e1.y);
+    const int c = sample(e2.x, e2.y);
+    const int d = sample(e3.x, e3.y);
+    return make_int2(__byte_perm(a, b, 0x5410), __byte_perm(c, d, 0x5410));
+  }
+
+  // The 16 nibbles of one 16-byte word.
+  __device__ __forceinline__ void group(const int8_t* x, int16_t* y) {
+    const int4 v = *reinterpret_cast<const int4*>(x);
+    const int2 a = quad(v.x), b = quad(v.y), c = quad(v.z), d = quad(v.w);
+    reinterpret_cast<int4*>(y)[0] = make_int4(a.x, a.y, b.x, b.y);
+    reinterpret_cast<int4*>(y)[1] = make_int4(c.x, c.y, d.x, d.y);
   }
 };
 
@@ -110,13 +150,18 @@ ima_decode_kernel(const uint8_t* __restrict__ nibbles, const int32_t* __restrict
   }
 }
 
-__global__ void __launch_bounds__(aukit::SCAN_LANES)
+__global__ void __launch_bounds__(aukit::WIN_LANES)
 msadpcm_decode_kernel(const int8_t* __restrict__ nibbles, const int32_t* __restrict__ state_in,
                       const int32_t* __restrict__ coefs, int16_t* __restrict__ out,
-                      int32_t* __restrict__ state_out, int lanes, long long T) {
-  const int lane = blockIdx.x * aukit::SCAN_LANES + threadIdx.x;
+                      int32_t* __restrict__ state_out, int lanes, long long T, bool wide_out) {
+  __shared__ int2 table[16];
+  if (threadIdx.x < 16) {
+    table[threadIdx.x] = make_int2(static_cast<int>(threadIdx.x ^ 8) - 8, MS_ADAPT[threadIdx.x]);
+  }
+  __syncthreads();
+  const int lane = blockIdx.x * aukit::WIN_LANES + threadIdx.x;
   const bool active = lane < lanes;
-  MsLane st{0, 0, 0, 0, 0};
+  MsLane st{table, 0, 0, 0, 0, 0};
   if (active) {
     st.s1 = state_in[lane];
     st.s2 = state_in[lanes + lane];
@@ -124,7 +169,7 @@ msadpcm_decode_kernel(const int8_t* __restrict__ nibbles, const int32_t* __restr
     st.c1 = coefs[lane];
     st.c2 = coefs[lanes + lane];
   }
-  aukit::scan_rows(nibbles, out, lanes, T, st);
+  aukit::window_rows(nibbles, out, lanes, T, wide_out, st);
   if (active) {
     state_out[lane] = st.s1;
     state_out[lanes + lane] = st.s2;
@@ -151,10 +196,15 @@ extern "C" int aukit_ima_decode(const void* nibbles, const void* state_in, void*
 extern "C" int aukit_msadpcm_decode(const void* nibbles, const void* state_in,
                                     const void* coefs, void* out, void* state_out, int lanes,
                                     long long T, void* stream) {
-  msadpcm_decode_kernel<<<aukit::scan_blocks(lanes), aukit::SCAN_LANES, 0,
+  // the fleet's 180,224 lanes are 43 blocks an SM: as many rings as fit
+  static const cudaError_t prepared = aukit::window_prepare(msadpcm_decode_kernel);
+  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  const auto* in = static_cast<const int8_t*>(nibbles);
+  auto* res = static_cast<int16_t*>(out);
+  msadpcm_decode_kernel<<<aukit::window_blocks(lanes), aukit::WIN_LANES,
+                          aukit::window_shared_bytes<int8_t, int16_t>(),
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(nibbles), static_cast<const int32_t*>(state_in),
-      static_cast<const int32_t*>(coefs), static_cast<int16_t*>(out),
-      static_cast<int32_t*>(state_out), lanes, T);
+      in, static_cast<const int32_t*>(state_in), static_cast<const int32_t*>(coefs), res,
+      static_cast<int32_t*>(state_out), lanes, T, aukit::window_wide_out(in, res));
   return static_cast<int>(cudaGetLastError());
 }

@@ -298,9 +298,34 @@ def phase_kernel_vs_plain() -> dict:
     return errs
 
 
+def chained_vs_plain(kernel, plain, calls, state, extra=()) -> tuple[bool, int]:
+    """A block kernel and its plain version over chained calls from one
+    state: (all outputs and states equal, max |error|)."""
+    ref_state, err = state, 0
+    for x in calls:
+        (out, state), (ref, ref_state) = kernel(x, *state, *extra), plain(x, *ref_state, *extra)
+        err = max(err, same(out, ref)[1], same(state, ref_state)[1])
+    return err == 0, err
+
+
+def window_kernel_cases(cases) -> dict:
+    """Kernels (e) and (f) against their plain versions on every case of
+    ``msadpcm_cases`` and ``qoa_cases`` (tests/torch_kernel_cases.py), all
+    lanes, outputs and final states, chained calls from a non-zero state.
+    -> {kernel: [(case, equal, max |error|)]}."""
+    found = {"msadpcm": [], "qoa": []}
+    for name, calls, state, coefs in cases.msadpcm_cases("cuda"):
+        found["msadpcm"].append((name, *chained_vs_plain(
+            ka.msadpcm_decode_kernel, ka.msadpcm_decode_ref, calls, state, coefs)))
+    for name, calls, state in cases.qoa_cases("cuda"):
+        found["qoa"].append((name, *chained_vs_plain(kq.qoa_lms_kernel, kq.qoa_lms_ref, calls,
+                                                     state)))
+    return found
+
+
 def phase_redesigned_kernel_paths() -> dict:
-    """Every path of the kernels redesigned for Hopper, (b), (c), (g) and (h),
-    against their plain versions on the same CUDA tensors, max |error| 0, on
+    """Every path of the kernels redesigned for Hopper, (b), (c), (e), (f),
+    (g) and (h), against their plain versions on the same CUDA tensors, max |error| 0, on
     the cases of tests/torch_kernel_cases.py: for (b) the table's 256 lowpass
     words, states outside their ranges (the division path), odd and short
     rows, ragged tiles and lanes, a misaligned base, gains past the rails and
@@ -309,13 +334,23 @@ def phase_redesigned_kernel_paths() -> dict:
     16-byte grid, every tap count, wide and negative shifts, ragged blocks;
     for (c) tame and wild states, levels on both rails, every store width,
     ragged tiles, a misaligned base, chained calls; for (h) row lengths from
-    one sample to a 44.1 kHz block's 4458, alphas near 0 and 1, denormals.
+    one sample to a 44.1 kHz block's 4458, alphas near 0 and 1, denormals;
+    for (e) and (f) rows on and off the 16-byte grid (the engine's 1010
+    nibbles), odd lengths, one sample, less than a tile, ragged lanes, bases
+    off the grid, chained calls, (e) with negative, capped and floored deltas
+    and every coefficient pair, (f) from states that wrap int32.
     Then the ramp's 64-bit time (more than 2^24 samples a lane) against the
     plain epilogue over kernel (a)'s raw samples: the plain decode loop
     would take hours there. Returns max |error| by kernel."""
     cases = load_test_module("torch_kernel_cases")
     errs = {"dfpwm_decode": 0, "dfpwm_decode_dsp": 0, "lpc_restore": 0, "dfpwm_encode": 0,
             "iir_zero": 0}
+    for kernel, found in window_kernel_cases(cases).items():
+        for name, ok, err in found:
+            check(ok, f"{kernel} kernel == plain on case {name} (max |error| {err})")
+        errs[kernel] = 0
+        say("kernel_vs_plain_paths", kernel=kernel, cases=json.dumps([f[0] for f in found]),
+            out_equal=True, state_equal=True)
     names = []
     for name, data, st, mask, gain in cases.dsp_cases("cuda"):
         for key, got, want in (
@@ -690,8 +725,24 @@ BLOCK_FLEET = (LaneSpec("ima", 22050, 1, block_align=256),
 BLOCK_LANES = (8192, 8192, 8192, 4096, 4096)
 CHECK_LANES = 4096  # the block fleet the CUDA and CPU engines both decode
 BENCH_LANES = 16384  # bench.py:306/324/343's block-kernel shapes: 4 x 4096 lanes
+BLOCK_BENCH_SHAPES = {"ima": (BENCH_LANES, 8192), "msadpcm": (BENCH_LANES, 8192),
+                      "qoa": (BENCH_LANES, 5120)}
 BLOCK_PLAIN = {"ima": ka.ima_decode_ref, "msadpcm": ka.msadpcm_decode_ref,
                "qoa": kq.qoa_lms_ref}
+
+
+def block_fleet_shape(name: str) -> tuple[int, int]:
+    """(lanes, samples) of the one launch of a block kernel in a window of
+    the block fleet: a lane per (stream, block or frame, channel)."""
+    i = [spec.codec for spec in BLOCK_FLEET].index(name)
+    spec = BLOCK_FLEET[i]
+    in_bytes, in_samples = bc.geometry(spec)
+    if name == "qoa":
+        blocks, T = in_samples // bc.QOA_SAMPLES_PER_FRAME, bc.QOA_SAMPLES_PER_FRAME
+    else:  # an MS ADPCM block's first two samples are its header's
+        blocks = in_bytes // spec.block_align
+        T = in_samples // blocks - (2 if name == "msadpcm" else 0)
+    return BLOCK_LANES[i] * blocks * spec.channels, T
 
 
 def ima_resample_width() -> int:
@@ -730,6 +781,21 @@ def block_kernel_cases(rng, lanes: int) -> dict:
                     rng.integers(-14336, 14337, (lanes, 5120)).astype(np.int16), device="cuda"),
                 (cuda_i32(qoa_hist), cuda_i32(qoa_wts)), ()),
     }
+
+
+def block_kernel_input(name: str, lanes: int, T: int) -> torch.Tensor:
+    """Random input rows of a block kernel, made on the card."""
+    lo, hi, dtype = {"ima": (0, 16, torch.uint8), "msadpcm": (-8, 8, torch.int8),
+                     "qoa": (-14336, 14337, torch.int16)}[name]
+    return torch.randint(lo, hi, (lanes, T), dtype=dtype, device="cuda")
+
+
+def block_kernel_call(rng, name: str, lanes: int, T: int):
+    """A call of a block kernel on random rows and ``block_kernel_cases``'
+    state, both on the card."""
+    _, _, state, extra = block_kernel_cases(rng, lanes)[name]
+    x = block_kernel_input(name, lanes, T)
+    return lambda: bc.BLOCK_KERNELS[name][1](x, *state, *extra)
 
 
 def phase_block_kernel_vs_plain() -> dict:
@@ -1045,20 +1111,17 @@ def phase_block_engines() -> None:
 def phase_block_times() -> dict:
     """Kernels (d), (e), (f) against their plain versions at bench.py's TPU
     shapes (IMA and MS ADPCM 16384 lanes x 8192 samples, QOA 16384 x 5120),
-    and the FMA at the fleet's resample shape, by CUDA events, in turns
-    kernel, plain, kernel, plain."""
+    by CUDA events, in turns kernel, plain, kernel, plain; the kernels alone
+    at the shape of their one launch in a block-fleet window (360,448 x 504,
+    180,224 x 1010, 147,456 x 5120), input on the card, each beside its bound
+    there; and the FMA at the fleet's resample shape."""
     rng = np.random.default_rng(11)
     lanes = BENCH_LANES
     cases = block_kernel_cases(rng, lanes)
     times = {}
-    for name, T in (("ima", 8192), ("msadpcm", 8192), ("qoa", 5120)):
+    for name, (_, T) in BLOCK_BENCH_SHAPES.items():
         _, _, state, extra = cases[name]
-        if name == "ima":
-            x = torch.randint(0, 16, (lanes, T), dtype=torch.uint8, device="cuda")
-        elif name == "msadpcm":
-            x = torch.randint(-8, 8, (lanes, T), dtype=torch.int8, device="cuda")
-        else:
-            x = torch.randint(-14336, 14337, (lanes, T), dtype=torch.int16, device="cuda")
+        x = block_kernel_input(name, lanes, T)
 
         def kernel(x=x, state=state, extra=extra, name=name):
             bc.BLOCK_KERNELS[name][1](x, *state, *extra)
@@ -1076,6 +1139,20 @@ def phase_block_times() -> dict:
         times[name] = timing(name, min(k1, k2), min(p1, p2), lanes * T * OPS_PER_SAMPLE[name],
                              lanes * T * (x.element_size() + 2))
         del x
+    for name in BLOCK_BENCH_SHAPES:
+        torch.cuda.empty_cache()  # the QOA launch: 1.5 GB in, 1.5 GB out
+        lanes, T = block_fleet_shape(name)
+        call = block_kernel_call(rng, name, lanes, T)
+        call()
+        ms = min(event_ms(call, 10), event_ms(call, 10))
+        in_size = 2 if name == "qoa" else 1
+        b, by = bound_ms(lanes * T * OPS_PER_SAMPLE[name], lanes * T * (in_size + 2))
+        say("time", kernel=name, shape="block_fleet_window", lanes=lanes, samples=T,
+            ms=round(ms, 4), gsamples_per_s=round(lanes * T / ms / 1e6, 2))
+        say("bound", kernel=name, shape="block_fleet_window", ms=round(ms, 4),
+            bound_ms=round(b, 4), bound_by=by, share_of_bound=round(b / ms, 4))
+        del call
+    torch.cuda.empty_cache()
     rows, cols = BLOCK_LANES[0], ima_resample_width()
     x = torch.rand((rows, cols), device="cuda") * 2 - 1
     frac = torch.rand(cols, device="cuda")

@@ -3,6 +3,9 @@ the JAX package: the same numpy inputs go through the JAX scans, the Pallas
 kernels (interpret mode, as the JAX package's own tests run them on the CPU)
 and the port's plain versions; outputs and final states must be bit-equal."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,9 @@ from aukit_tpu_torch.codecs import adpcm
 from aukit_tpu_torch.interop import kernel_state_from_numpy, kernel_state_to_numpy
 from aukit_tpu_torch.kernels.adpcm_cuda import (ima_decode_kernel, ima_decode_ref,
                                                 msadpcm_decode_kernel, msadpcm_decode_ref)
+from tests import torch_kernel_cases as kernel_cases
+
+MSADPCM_CASES = [c[0] for c in kernel_cases.msadpcm_cases("cpu")]
 
 
 def t(a, dtype=None):
@@ -120,6 +126,47 @@ def test_msadpcm_plain_matches_scan_and_pallas(lanes, T):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
     assert_state_equal(st, pal_st)
+
+
+@pytest.mark.parametrize("name", MSADPCM_CASES)
+def test_msadpcm_kernel_cases_plain_matches_scan_and_pallas(name):
+    """The cases that hold the CUDA kernel to its plain version on the card
+    (tests/torch_kernel_cases.py) hold the plain version to the JAX scan and
+    the Pallas kernel (interpret mode) here: chained calls, samples and
+    final state bit-equal; each case has deltas negative, at the cap and at
+    the floor, and nibble -8."""
+    _, calls, st, (c1, c2) = next(c for c in kernel_cases.msadpcm_cases("cpu") if c[0] == name)
+    delta0 = st[2].numpy()
+    assert (delta0 < 0).any() and (delta0 == 1 << 20).any() and (delta0 == 16).any()
+    assert int(calls[0].min()) == -8 and int(calls[0].max()) == 7
+    c1, c2 = c1.numpy(), c2.numpy()
+    pal_st = tuple(a.numpy() for a in st)
+    for nibs in calls:
+        got, st = msadpcm_decode_ref(nibs, *st, t(c1), t(c2))
+        s1, s2, delta = pal_st
+        ref = msadpcm_scan(jnp.asarray(nibs.numpy(), jnp.int32), jnp.asarray(c1), jnp.asarray(c2),
+                           jnp.asarray(delta), jnp.asarray(s1), jnp.asarray(s2))
+        pal, pal_st = msadpcm_decode_pallas(nibs.numpy(), s1, s2, delta, c1, c2, interpret=True)
+        pal_st = tuple(np.asarray(a) for a in pal_st)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
+        assert_state_equal(st, pal_st)
+
+
+def test_cuda_source_adaption_table_equals_jax_adapt_for_every_nibble():
+    """The CUDA kernel looks its adaption factor up by ``nib & 15`` in a
+    16-entry table (``MS_ADAPT`` in csrc/adpcm.cu): for every signed nibble
+    the entry equals the Pallas kernel's arithmetic ``_adapt``."""
+    from aukit_tpu.kernels.msadpcm_pallas import _adapt
+
+    src = Path(adpcm.__file__).parent.parent / "csrc" / "adpcm.cu"
+    body = re.search(r"MS_ADAPT\[16\] = \{([^}]*)\}", src.read_text()).group(1)
+    table = np.array([int(v) for v in body.split(",")], np.int32)
+    assert table.shape == (16,)
+    nib = np.arange(-8, 8, dtype=np.int32)
+    want = _adapt(jnp.asarray(nib), jnp.abs(jnp.asarray(nib)))
+    np.testing.assert_array_equal(table[nib & 15], np.asarray(want))
+    np.testing.assert_array_equal(table[nib & 15], adpcm._adapt(torch.tensor(nib)).numpy())
 
 
 def test_wrappers_take_the_plain_versions_on_cpu():

@@ -48,6 +48,8 @@ DSP_CASES = [c[0] for c in kernel_cases.dsp_cases("cpu")]
 LPC_CASES = [c[0] for c in kernel_cases.lpc_cases("cpu")]
 ENCODE_CASES = [c[0] for c in kernel_cases.encode_cases("cpu")]
 IIR_CASES = [c[0] for c in kernel_cases.iir_cases("cpu")]
+QOA_CASES = [c[0] for c in kernel_cases.qoa_cases("cpu")]
+MSADPCM_CASES = [c[0] for c in kernel_cases.msadpcm_cases("cpu")]
 
 
 def random_state(rng, lanes, device):
@@ -269,6 +271,35 @@ def test_qoa_kernel_matches_plain(wrap):
     st = ref_st = (hist, wts)
     for _ in range(2):
         dq = torch.tensor(rng.integers(-14336, 14337, (lanes, T)).astype(np.int16), device="cuda")
+        out, st = qoa_lms_kernel(dq, *st)
+        ref, ref_st = qoa_lms_ref(dq, *ref_st)
+        assert out.dtype == torch.int16 and torch.equal(out, ref)
+        assert_kernel_state_equal(st, ref_st)
+
+
+@pytest.mark.parametrize("name", MSADPCM_CASES)
+def test_msadpcm_kernel_cases_match_plain(name):
+    """Every path of the pipelined MS ADPCM decode: rows on and off the
+    16-byte grid (the engine's 1010 nibbles), odd lengths, one sample, less
+    than a tile, ragged lanes, bases off the grid, chained calls, deltas
+    negative, at the cap and at the floor: samples and state bit-equal."""
+    _, calls, st, coefs = next(c for c in kernel_cases.msadpcm_cases("cuda") if c[0] == name)
+    ref_st = st
+    for nibs in calls:
+        out, st = msadpcm_decode_kernel(nibs, *st, *coefs)
+        ref, ref_st = msadpcm_decode_ref(nibs, *ref_st, *coefs)
+        assert out.dtype == torch.int16 and torch.equal(out, ref)
+        assert_kernel_state_equal(st, ref_st)
+
+
+@pytest.mark.parametrize("name", QOA_CASES)
+def test_qoa_kernel_cases_match_plain(name):
+    """Every path of the pipelined QOA LMS: the same row shapes, states that
+    wrap int32, residuals at both ends of the dequant range: samples and
+    state bit-equal."""
+    _, calls, st = next(c for c in kernel_cases.qoa_cases("cuda") if c[0] == name)
+    ref_st = st
+    for dq in calls:
         out, st = qoa_lms_kernel(dq, *st)
         ref, ref_st = qoa_lms_ref(dq, *ref_st)
         assert out.dtype == torch.int16 and torch.equal(out, ref)

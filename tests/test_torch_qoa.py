@@ -16,6 +16,9 @@ from aukit_tpu.stream.batch_codecs import _qoa_dequant_device
 from aukit_tpu_torch.codecs.qoa import QOA_DEQUANT, qoa_dequant
 from aukit_tpu_torch.interop import kernel_state_from_numpy, kernel_state_to_numpy
 from aukit_tpu_torch.kernels.qoa_cuda import qoa_lms_kernel, qoa_lms_ref
+from tests import torch_kernel_cases as kernel_cases
+
+QOA_CASES = [c[0] for c in kernel_cases.qoa_cases("cpu")]
 
 
 def assert_state_equal(got, *wants):
@@ -60,6 +63,29 @@ def test_qoa_plain_weight_wraparound():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
     assert_state_equal(st, ref_st, pal_st)
+
+
+@pytest.mark.parametrize("name", QOA_CASES)
+def test_qoa_kernel_cases_plain_matches_scan_and_pallas(name):
+    """The cases that hold the CUDA kernel to its plain version on the card
+    (tests/torch_kernel_cases.py) hold the plain version to the JAX scan and
+    the Pallas kernel (interpret mode) here: chained calls, samples and
+    final state bit-equal."""
+    _, calls, st = next(c for c in kernel_cases.qoa_cases("cpu") if c[0] == name)
+    ref_st = pal_st = tuple(jnp.asarray(a.numpy()) for a in st)
+    wrapped = False
+    for dq in calls:
+        got, st = qoa_lms_ref(dq, *st)
+        x = dq.numpy().astype(np.int32)
+        hist, wts = (np.asarray(a, np.int64) for a in ref_st)
+        wrapped |= bool((np.abs((hist * wts).sum(1)) >= 1 << 31).any())
+        ref, ref_st = qoa_lms_scan(jnp.asarray(x), *ref_st)
+        pal, pal_st = qoa_lms_pallas(x, *(np.asarray(a) for a in pal_st), interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
+        assert_state_equal(st, ref_st, pal_st)
+    assert wrapped, "the case's state wraps int32"
+    assert {int(calls[0].min()), int(calls[0].max())} == {-14336, 14336}
 
 
 def test_qoa_dequant_lookup_matches_jax_device_dequant():

@@ -1,12 +1,14 @@
 """Inputs that reach every path of the port's redesigned CUDA kernels: the
 fused DFPWM decode + DSP and the DFPWM encode (``csrc/dfpwm.cu``), the FLAC
 LPC restore (``csrc/flac.cu``) and the zero-state lowpass (``csrc/iir.cu``),
-the last three on the pipelined skeleton of ``csrc/lane_scan.cuh``. One
-definition for the card tests (``tests/test_torch_cuda.py``) and for
-``chip_smoke.py``, which both load this file by path and hold each case's
-kernel output against the plain version, max |error| 0, and for the CPU tests
-(``tests/test_torch_dfpwm.py``, ``test_torch_encode.py``,
-``test_torch_flac.py``), which hold the plain version's output on the same
+the last three on the pipelined skeleton ``ring_rows`` of
+``csrc/lane_scan.cuh``; the QOA LMS (``csrc/qoa.cu``) and the MS ADPCM decode
+(``csrc/adpcm.cu``) on its ``window_rows``. One definition for the card tests
+(``tests/test_torch_cuda.py``) and for ``chip_smoke.py``, which both load
+this file by path and hold each case's kernel output against the plain
+version, max |error| 0, and for the CPU tests (``tests/test_torch_dfpwm.py``,
+``test_torch_encode.py``, ``test_torch_flac.py``, ``test_torch_qoa.py``,
+``test_torch_adpcm.py``), which hold the plain version's output on the same
 cases (``device="cpu"``) against the JAX package. Imports numpy and torch
 only.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aukit_tpu_torch.codecs.adpcm import MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 
 
@@ -275,3 +278,95 @@ def iir_cases(device="cuda"):
     x = rows(36, 130, 1e30)
     x[:, 3:] = 0.0
     yield "decay_into_denormals", x, 0.999
+
+
+# Row shapes of the kernels on ``window_rows`` (128-sample tiles on the
+# 16-byte grid of device memory, 32 lanes a block), as (lanes, [samples of each
+# chained call]): rows on the grid with whole tiles; on the grid with a ragged
+# last tile; an odd length (every row its own lead into its first tile); below
+# one 16-byte word; one sample; exactly one tile; lanes that are not a multiple
+# of the block; rows long enough to take the ring round three times.
+WINDOW_SHAPES = ((40, [256, 128]), (33, [208]), (37, [77, 75]), (5, [7]), (3, [1, 1]), (32, [128]),
+                 (65, [130]), (34, [1300]))
+
+
+def _off_base(x: torch.Tensor, skip: int) -> torch.Tensor:
+    """The rows of ``x``, contiguous, ``skip`` elements into a new tensor."""
+    flat = x.reshape(-1)
+    return torch.cat([flat[:skip], flat])[skip:].view(x.shape)
+
+
+def _qoa_dq(rng, lanes: int, T: int) -> np.ndarray:
+    """Residuals over the dequant table's range, both of its ends pinned:
+    every fifth lane alternates -+14336, the next +-14336."""
+    dq = rng.integers(-14336, 14337, (lanes, T)).astype(np.int16)
+    dq[0::5], dq[1::5] = 14336, -14336
+    dq[0::5, ::2], dq[1::5, ::2] = -14336, 14336
+    return dq
+
+
+def _qoa_state(rng, lanes: int, device):
+    """(history, weights) int32[L, 4]: random mid-stream words, every other
+    lane in the state whose products and weights wrap int32."""
+    hist = rng.integers(-32768, 32768, (lanes, 4))
+    wts = rng.integers(-30000, 30000, (lanes, 4))
+    hist[::2], wts[::2] = 32767, 2 * 10**8
+    hist[2::4] = -32768
+    return _i32(hist, device), _i32(wts, device)
+
+
+def qoa_cases(device="cuda"):
+    """-> (name, [dq i16[L, T] of each chained call], (history, weights)) of
+    the QOA LMS kernel: ``WINDOW_SHAPES`` (rows of an even length that is no
+    multiple of 8 start on 4- and 8-byte boundaries), the fleet's row length
+    off the grid, bases 2 and 16 bytes into a tensor (the first moves the
+    output off the input's grid: element stores, here of whole tiles too and
+    in a second block, the rows' leads alternating), states that wrap int32
+    and residuals at both ends of the dequant range in every case."""
+    rng = np.random.default_rng(54)
+
+    def dq(lanes, T):
+        return torch.tensor(_qoa_dq(rng, lanes, T), device=device)
+
+    for lanes, calls in (*WINDOW_SHAPES, (70, [300, 150])):
+        yield (f"shape_{lanes}x{'+'.join(map(str, calls))}", [dq(lanes, T) for T in calls],
+               _qoa_state(rng, lanes, device))
+    for skip in (1, 8):
+        lanes, T = 41, 404
+        yield (f"base_plus_{skip}", [_off_base(dq(lanes, T), skip)],
+               _qoa_state(rng, lanes, device))
+
+
+def msadpcm_cases(device="cuda"):
+    """-> (name, [nibbles i8[L, T] of each chained call], (sample1, sample2,
+    delta), (c1, c2)) of the MS ADPCM decode kernel: ``WINDOW_SHAPES``, the
+    engine's 1010-sample rows (every row on a 2-byte boundary), bases 1, 8
+    and 16 bytes into a tensor (1: element stores, of whole tiles too and in
+    a second block; 8: rows off the grid whose output is on it; 404-sample
+    rows, so the leads differ from row to row); in every case negative header deltas, deltas at the
+    ``1 << 20`` cap and at the floor of 16, every coefficient pair, every
+    nibble (-8 and 7 pinned on a lane of every seven)."""
+    rng = np.random.default_rng(55)
+
+    def nibs(lanes, T):
+        x = rng.integers(-8, 8, (lanes, T)).astype(np.int8)
+        x[0::7] = -8
+        x[1::7, ::3] = 7
+        return torch.tensor(x, device=device)
+
+    def state(lanes):
+        delta = rng.integers(-400, 400, lanes)
+        delta[0::5], delta[1::5], delta[3::5] = 1 << 20, 16, (1 << 20) - 1
+        delta[2::5] = -1 - np.abs(delta[2::5])
+        pidx = np.arange(lanes) % 7
+        return ((_i32(rng.integers(-32768, 32768, lanes), device),
+                 _i32(rng.integers(-32768, 32768, lanes), device), _i32(delta, device)),
+                (_i32(MSADPCM_DEFAULT_COEFFS[0][pidx], device),
+                 _i32(MSADPCM_DEFAULT_COEFFS[1][pidx], device)))
+
+    for lanes, calls in (*WINDOW_SHAPES, (35, [1010])):
+        yield (f"shape_{lanes}x{'+'.join(map(str, calls))}", [nibs(lanes, T) for T in calls],
+               *state(lanes))
+    for skip in (1, 8, 16):
+        lanes, T = 41, 404
+        yield f"base_plus_{skip}", [_off_base(nibs(lanes, T), skip)], *state(lanes)

@@ -11,23 +11,29 @@ JAX):
 ``sass`` builds the kernel library, prints ``ptxas -v``'s registers, spills
 and shared memory of every kernel whose demangled name contains one of the
 patterns (default: the DFPWM decode instantiations, the DFPWM encode, the
-LPC restore and the zero-state lowpass), and from ``cuobjdump -sass`` the
+LPC restore, the zero-state lowpass, the QOA LMS and the MS and IMA ADPCM
+decodes), and from ``cuobjdump -sass`` the
 instruction count of each of its loops (a loop is a backward branch: the
 instructions from its target to the branch), with the opcode histogram of
 the largest loop. The DFPWM decode loop holds 16 samples (two bytes), the
 encode loop 32 (one word of bits out; the first version's held 8), so the
 count over that is the instructions per sample; the LPC loops hold as many
-samples as the source unrolls, the lowpass's tile 64. ``--out`` keeps each
-kernel's SASS in a file.
+samples as the source unrolls, the lowpass's tile 64; the QOA LMS and the MS
+ADPCM decode hold four 16-byte groups (32 and 64 samples) in the loop over a
+whole tile, and the tile loop around it (the largest: 128 samples with their
+copies, stores and barriers) holds one more group for a row's edge tiles; the
+IMA decode holds 4 samples in its compute loop. ``--out`` keeps each kernel's
+SASS in a file.
 
 ``check`` holds each kernel against its plain version and times nothing:
-(a), (b) and (g) at a small shape, (c) and (h) on every case of
-tests/torch_kernel_cases.py. ``bench`` does the same, then times kernels
-(a), (b), (c), (g) and (h) alone by CUDA events at the
-shapes chip_smoke.py times them (random bytes instead of encoded tones; (c)
-also at a transcode window's two launches, (h) at a 48 kHz and a 44.1 kHz
-fleet step's rows), and a transcode window's three encoders on windows that
-live on the card, in sequence and through ``encode_windows_many``.
+(a), (b), (d) and (g) at a small shape, (c), (e), (f) and (h) on every case
+of tests/torch_kernel_cases.py. ``bench`` does the same, then times every
+kernel alone by CUDA events at the shapes chip_smoke.py times them (random
+bytes instead of encoded tones; (c) also at a transcode window's two
+launches, (h) at a 48 kHz and a 44.1 kHz fleet step's rows, (d), (e), (f)
+at bench.py's 16384 lanes and at the one launch of a block-fleet window),
+and a transcode window's three encoders on windows that live on the card, in
+sequence and through ``encode_windows_many``.
 
 ``--csrc DIR`` builds another directory of sources (an earlier commit's
 ``aukit_tpu_torch/csrc``) instead, to compare two versions on one card in
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import json
 import re
 import subprocess
 import sys
@@ -51,12 +58,17 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from aukit_tpu_torch.kernels import _build  # noqa: E402
+from aukit_tpu_torch.kernels import adpcm_cuda as ka  # noqa: E402
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc  # noqa: E402
 from aukit_tpu_torch.kernels import flac_cuda as kg  # noqa: E402
 from aukit_tpu_torch.kernels import iir_cuda as kh  # noqa: E402
+from aukit_tpu_torch.kernels import qoa_cuda as kq  # noqa: E402
 
+BLOCK_KERNEL_NAMES = {"ima": "ima_decode_kernel", "msadpcm": "msadpcm_decode_kernel",
+                      "qoa": "qoa_lms_kernel"}
 DEFAULT_PATTERNS = ("dfpwm_decode_kernel", "dfpwm_encode_kernel", "lpc_restore_kernel",
-                    "iir_zero_kernel")
+                    "iir_zero_kernel", "qoa_lms_kernel", "msadpcm_decode_kernel",
+                    "ima_decode_kernel")
 
 
 def ptxas_report(log: str) -> dict:
@@ -148,7 +160,17 @@ def checks(rng) -> None:
         cs.say("probe_check", kernel="lpc_restore", rows=rows, T=T, order=order, equal=ok)
         cs.check(ok, "lpc_restore kernel == plain")
 
+    nibs = torch.tensor(rng.integers(0, 16, (130, 300), dtype=np.uint8), device="cuda")
+    st = (cs.cuda_i32(rng.integers(-32768, 32768, 130)), cs.cuda_i32(rng.integers(0, 89, 130)))
+    ok = cs.chained_vs_plain(ka.ima_decode_kernel, ka.ima_decode_ref, [nibs, nibs], st)[0]
+    cs.say("probe_check", kernel="ima_decode", equal=ok)
+    cs.check(ok, "ima_decode kernel == plain")
+
     cases = cs.load_test_module("torch_kernel_cases")
+    for kernel, found in cs.window_kernel_cases(cases).items():
+        for name, ok, _err in found:
+            cs.say("probe_check", kernel=kernel, case=name, equal=ok)
+            cs.check(ok, f"{kernel} kernel == plain on case {name}")
     for name, calls, st in cases.encode_cases("cuda"):
         ref_st = st
         for x in calls:
@@ -162,6 +184,21 @@ def checks(rng) -> None:
         cs.check(ok, f"iir_zero kernel == plain on case {name}")
 
 
+def kernel_only_ms(call, name: str, iters: int = 5) -> float:
+    """Mean device milliseconds of the kernels whose name contains ``name``
+    over ``iters`` calls (torch.profiler): the kernel without the wrapper's
+    small torch ops around it."""
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(spans) / max(len(spans), 1) / 1e3
+
+
 def cmd_check(args) -> None:
     smi = cs.phase_device()
     _build.load()
@@ -169,15 +206,42 @@ def cmd_check(args) -> None:
     print(smi, flush=True)
 
 
+def bench_block_kernels(rng, best, names, shapes=()) -> None:
+    """(d), (e), (f) at bench.py's 16384 lanes, then at a block-fleet
+    window's one launch (or at the given shapes): the wrapper's call by CUDA
+    events, and the kernel alone by the profiler."""
+    for name in names:
+        for lanes, T in shapes or (cs.BLOCK_BENCH_SHAPES[name], cs.block_fleet_shape(name)):
+            call = cs.block_kernel_call(rng, name, lanes, T)
+            cs.say("probe_time", kernel=name, lanes=lanes, samples=T, ms=round(best(call), 4),
+                   kernel_only_ms=round(kernel_only_ms(call, BLOCK_KERNEL_NAMES[name]), 4))
+            del call
+            torch.cuda.empty_cache()
+
+
+def say_clocks() -> None:
+    """The SM clock right after the timed kernels, beside its maximum."""
+    got = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    cs.say("probe_clocks", sm_and_max=json.dumps(got))
+
+
 def cmd_bench(args) -> None:
     smi = cs.phase_device()
     _build.load()
     rng = np.random.default_rng(21)
-    checks(rng)
 
     def best(fn) -> float:
         fn()
         return min(cs.event_ms(fn, args.iters) for _ in range(3))
+
+    if args.only:
+        bench_block_kernels(rng, best, args.only,
+                            [tuple(map(int, sh.split("x"))) for sh in args.shape or ()])
+        say_clocks()
+        print(smi, flush=True)
+        return
+    checks(rng)
 
     full = cs.FULL_LANES
     for lanes, nbytes in ((full, 24576), (full // 2, 4000), (full, 512)):
@@ -215,6 +279,7 @@ def cmd_bench(args) -> None:
                ms=round(best(lambda: kh.iir_zero_kernel(*x)), 4))
         del x
     torch.cuda.empty_cache()
+    bench_block_kernels(rng, best, BLOCK_KERNEL_NAMES)
     for rows in (cs.LPC_ROWS, 7168, 2048):
         a = cs.lpc_bench_args(rng, rows, cs.FLAC_N)
         cs.say("probe_time", kernel="lpc_restore", rows=rows, samples=cs.FLAC_N, K=8,
@@ -240,6 +305,7 @@ def cmd_bench(args) -> None:
     cs.say("probe_time", case="transcode_window_encoders", mono_lanes=mono, stereo_lanes=stereo,
            in_sequence_ms=round(best(lambda: [e.encode_windows(w, m) for e, w, m in jobs]), 4),
            on_streams_ms=round(best(lambda: cs.encode_windows_many(jobs)), 4))
+    say_clocks()
     print(smi, flush=True)
 
 
@@ -254,6 +320,10 @@ def main() -> None:
     p.set_defaults(fn=cmd_check)
     p = sub.add_parser("bench")
     p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--only", nargs="*", metavar="KERNEL",
+                   help="time only these of ima, msadpcm, qoa (and skip the checks)")
+    p.add_argument("--shape", nargs="*", metavar="LANESxSAMPLES",
+                   help="with --only: these shapes instead of the bench and fleet shapes")
     p.set_defaults(fn=cmd_bench)
     for q in sub.choices.values():
         q.add_argument("--csrc", help="build this directory of sources instead")
