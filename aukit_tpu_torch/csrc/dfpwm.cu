@@ -17,32 +17,55 @@
 //
 // Layout. The wrapper keeps the JAX wrappers' lane-major layout (bytes
 // u8[L,B] in, samples i8[L,8B] out). A thread reading its own row would make
-// every warp load touch 32 rows, so a block of LANES lanes stages TILE_BYTES
-// bytes of each of its rows in shared memory first and writes its samples
-// back through a second shared tile, along each row. The decoder moves 16
-// bytes an instruction wherever the rows allow it: it loads a row's tile as
-// 16-byte words when the row length is a multiple of 16, a lane writes the
-// 16 samples of two bytes as one 16-byte word into the sample tile, and the
-// tile goes out as 16-byte stores when the row length is even (every row of
-// samples then starts on a 16-byte boundary). The sample tile's row stride
-// is 68 words, 4 more than a multiple of 32, so a quarter warp's 16-byte
-// accesses cover all 32 banks whether eight lanes write their own rows or
-// eight threads read along one row. Odd row lengths take 4-byte stores and
-// byte loads; the ragged last tile runs the same code with a shorter count.
-// The encoder (below, at its kernel) runs on the pipelined skeleton of
-// lane_scan.cuh instead: its wide side is the input.
+// every warp load touch 32 rows, so a block of one warp stages TILE_BYTES
+// bytes of each of its rows in shared memory and writes its samples back
+// through a tile of samples, along each row. The byte tiles come through a
+// ring of DEC_STAGES, fetched by cp.async 16 bytes a copy two tiles ahead of
+// the one being decoded (rows whose length is a multiple of 16 from an
+// aligned base; any other row is copied byte by byte, at the same point of
+// the loop). A lane decodes two bytes into one 16-byte word of the sample
+// tile, whose rows are 68 words, 4 more than a multiple of 32, so a quarter
+// warp's 16-byte accesses cover all 32 banks whether eight lanes write their
+// own rows or eight threads read along one row. The warp then stores the
+// tile 16 bytes a store (even row lengths from an aligned base, so that
+// every row of samples starts on a 16-byte boundary; 4 bytes else) and goes
+// on to the next tile while those stores are on their way; the ragged last
+// tile runs the same code with a shorter count. Only the warp's own barrier
+// (__syncwarp) orders the tiles. The ring is the decoder's own, not
+// lane_scan.cuh's window_rows: a byte in gives eight samples out, and an
+// output side eight times as wide as window_rows' 128-element tiles would
+// be 32 KB a warp; here the bytes' tile is 32 a row and the samples' 256.
+// The encoder (below, at its kernel) runs on the pipelined skeleton
+// ring_rows of lane_scan.cuh: its wide side is the input.
 //
 // What bounds the decoder on the H100 (measured: PERF.md). Per 8 samples a
 // lane reads 1 byte and writes 8, far under the memory rate: instructions
-// bound it. A sample's recurrence compiles to 26 instructions (19 on the
-// integer pipe, which starts a warp's instruction every other cycle, 7
-// multiply-adds on the float pipe), of which 8 form the chain from one
-// charge to the next. One thread per lane gives 32768 lanes = 1024 warps,
-// two per scheduler, so the chain's latency and the integer pipe bound it
-// together, and the lanes are the only parallelism the recurrence has.
-// LANES = 64 gives 512 blocks at 32768 lanes, 3.9 per SM (32 or 64 lanes a
-// block time the same). The barriers (three per tile of 256 samples a lane)
-// cost nothing beside a tile's ~7000 instructions.
+// bound it. One thread per lane gives 32768 lanes = 1024 warps, two per
+// scheduler, and the mixed fleet's 16384 lanes one, which issues an
+// instruction every other cycle at best and hides nothing behind another
+// warp: so the design spends few instructions a sample and keeps the chains
+// from one sample to the next shorter than those instructions.
+//   - A tame lane (charge, previous charge and lowpass in [-128, 127],
+//     strength in [0, 1023], previous bit 0 or 1: every state a stream
+//     produces, and a tame lane stays tame; tested once a call) takes a
+//     short step. A byte's bit flips (bit ^ previous bit) are spread once
+//     into masks, one PRMT a sample takes out the next, and the target
+//     (127 or -128, all ones apart) flips with them, so nothing selects on
+//     the bit. t = strength * (target - charge) + 512, the move is t >> 10
+//     added to the charge (one LEA.HI), and the stall nudge (a move of 0
+//     short of the target becomes one step toward it) is
+//     min(max(target, charge - 1), charge + 1), taken where t lies in
+//     [0, 1023]. The strength is clamp(strength + 1 + 2 * flip mask, 8,
+//     1023), the antijerk a mask select. The tame step compiles to 19.9
+//     instructions a sample, 13.9 on the integer pipe (predict()'s: 25.7);
+//     its chain from charge to charge is subtract, multiply-add, compare,
+//     shift-and-add.
+//   - Any other lane runs predict(), exact for every int32 state.
+// A block's work split over two warps (one running the charge and the
+// strength, one the antijerk, the lowpass and the stores, charges handed
+// over in shared memory) was slower at 16384 and at 32768 lanes (PERF.md):
+// it adds instructions, and two warps a scheduler already fill the integer
+// pipe.
 //
 // The fused epilogue (dfpwm_decode_dsp) is off that chain: it reads only the
 // sequence of lowpass words. So its cost is instruction slots, and its design
@@ -50,11 +73,10 @@
 // conversion unit, which the recurrence leaves idle:
 //   - the normalisation v / (v < 0 ? 128 : 127) is a lookup in a 256-entry
 //     table in shared memory that each block fills with the same IEEE
-//     division. A lane whose charge, previous charge and lowpass start in
-//     [-128, 127] and whose strength starts in [0, 1023] keeps its lowpass
-//     word in [-128, 127] for ever (every update moves a word toward a
-//     target in that range), so the range is checked once per call and lane,
-//     not per sample; any other lane divides, as the plain version does;
+//     division. A tame lane keeps its lowpass word in [-128, 127] for ever
+//     (every update moves a word toward a target in that range), so the
+//     range is checked once per call and lane, not per sample; any other
+//     lane divides, as the plain version does;
 //   - the rail 128 or 127 is 127.5 - copysign(0.5, o): one bit operation and
 //     one exact float add instead of a compare and a select;
 //   - clamp, truncation and cast are one conversion float -> int32 toward
@@ -67,8 +89,9 @@
 //     beyond that;
 //   - a masked lane's words are and-ed with zero once per byte.
 // The compiler merges the two conversions into one packing conversion per
-// two samples (F2IP); the epilogue compiles to 8.6 instructions a sample,
-// where the one that divided, clamped and selected took 35.
+// two samples (F2IP); the epilogue compiles to 8.3 instructions a sample
+// (the tame fused loop's 28.2 less the raw loop's 19.9), where the one that
+// divided, clamped and selected took 35.
 //
 // Exactness. Integer semantics are those of _decode_tile (int32, arithmetic
 // right shifts -- what nvcc does for signed >>, round-half-up at PREC). The
@@ -83,17 +106,21 @@
 
 namespace {
 
+using aukit::clamp_int;
+
 constexpr int PREC = 10;
 constexpr int PREC_HALF = 1 << (PREC - 1);
 constexpr int STRENGTH_MAX = (1 << PREC) - 1;
 constexpr int STRENGTH_MIN = 1 << (PREC - 7);
 constexpr int LOWPASS_NUM = 140;
 
-constexpr int LANES = 64;                       // threads (= lanes) per block
-constexpr int TILE_BYTES = 32;                  // bytes per lane per tile
+constexpr int LANES = 32;                       // threads (= lanes) per block: one warp
+constexpr int TILE_BYTES = 32;                  // bytes per lane per tile: 256 samples
+constexpr int DEC_STAGES = 3;                   // byte tiles: one decoding, two in flight
 constexpr int OUT_WORDS = TILE_BYTES * 2;       // 8 int8 samples = 2 words per byte
 // the decoder's tiles: rows of 16-byte words
 constexpr int DEC_IN_STRIDE = TILE_BYTES + 16;  // bytes; 12 words
+constexpr int DEC_IN_VECS = TILE_BYTES / 16;    // 16-byte words per row of a byte tile
 constexpr int DEC_OUT_STRIDE = OUT_WORDS + 4;   // 68 words: 4 more than a multiple of 32
 constexpr int DEC_OUT_VECS = OUT_WORDS / 4;     // 16-byte words per row of the sample tile
 constexpr long long RAMP_EXACT_SAMPLES = 1LL << 24;  // a float counts this far by + 1.0f
@@ -127,6 +154,40 @@ __device__ __forceinline__ int decode_bit(Lane& st, int bit) {
   return st.lp;
 }
 
+// One bit of a tame lane (see tame()): decode_bit's result in fewer
+// instructions and a shorter chain. ``target``: the bit's, 127 or -128;
+// ``flip``: bit ^ previous bit as a mask, 0 or -1, so nothing selects on it.
+__device__ __forceinline__ int decode_bit_tame(Lane& st, int target, int flip) {
+  // the move is t >> PREC; |t| < 2^19
+  const int t = st.s * (target - st.q) + PREC_HALF;
+  // a move of 0 short of the target is one step toward it; at the target, none
+  const int nq = static_cast<unsigned>(t) < (1u << PREC) ? min(max(target, st.q - 1), st.q + 1)
+                                                         : st.q + (t >> PREC);
+  st.s = clamp_int(st.s + 1 + 2 * flip, STRENGTH_MIN, STRENGTH_MAX);
+  // the antijerk average where the bit flipped, else the charge
+  const int aj = (((nq + st.pq + 1) >> 1) & flip) | (nq & ~flip);
+  st.lp += ((aj - st.lp) * LOWPASS_NUM + 0x80) >> 8;
+  st.q = st.pq = nq;
+  return st.lp;
+}
+
+// The 8 bits of a byte in two words, bit k in the top bit of byte k % 4 of
+// word k / 4: the byte in every byte, bit k of byte k isolated, and a carry
+// into the byte's top bit added (0x80 less the bit's weight).
+__device__ __forceinline__ void spread_bits(int byte, uint32_t (&w)[2]) {
+  const uint32_t x = static_cast<uint32_t>(byte) * 0x01010101u;
+  w[0] = (x & 0x08040201u) + 0x787c7e7fu;
+  w[1] = (x & 0x80402010u) + 0x00406070u;
+}
+
+// The top bit of byte k of w as a mask, 0 or -1: one PRMT (selector 8 + k
+// replicates byte k's sign into every byte).
+__device__ __forceinline__ int byte_sign(uint32_t w, int k) {
+  int d;
+  asm("prmt.b32 %0, %1, %1, %2;" : "=r"(d) : "r"(w), "r"(0x8888 + 0x1111 * k));
+  return d;
+}
+
 __device__ __forceinline__ float norm8(int v) {
   return __fdiv_rn(static_cast<float>(v), v < 0 ? 128.0f : 127.0f);
 }
@@ -134,11 +195,14 @@ __device__ __forceinline__ float norm8(int v) {
 // A lane whose words start in these ranges keeps them there: the charge
 // moves toward -128 or 127 by at most the distance (strength <= 1023 of
 // 1024), the antijerk average lies between two charges, the lowpass moves
-// toward it by 140/256 of the distance.
+// toward it by 140/256 of the distance, the strength stays in [8, 1023] and
+// the previous bit is a bit. Such a lane takes decode_bit_tame, and the
+// fused epilogue's table of its 256 lowpass words.
 __device__ __forceinline__ bool tame(const Lane& st) {
   const auto in8 = [](int v) { return static_cast<unsigned>(v + 128) < 256u; };
   return in8(st.q) && in8(st.pq) && in8(st.lp) &&
-         static_cast<unsigned>(st.s) <= static_cast<unsigned>(STRENGTH_MAX);
+         static_cast<unsigned>(st.s) <= static_cast<unsigned>(STRENGTH_MAX) &&
+         static_cast<unsigned>(st.lb) <= 1u;
 }
 
 // d = bytes {sat8(lo), sat8(hi), upper's low 16 bits}, lowest byte first.
@@ -156,18 +220,35 @@ struct Dsp {
 };
 
 // Decodes one byte into 8 samples as two words, lowest byte first. DSP: the
-// fused epilogue of _decode_dsp_kernel (dfpwm_pallas.py:178-213). TABLE: the
-// lane is tame, so norm8 is tab[lp + 128].
-template <bool DSP, int RAMP, bool TABLE>
+// fused epilogue of _decode_dsp_kernel (dfpwm_pallas.py:178-213). TAME: the
+// lane is tame, so it takes decode_bit_tame and norm8 is tab[lp + 128].
+template <bool DSP, int RAMP, bool TAME>
 __device__ __forceinline__ void decode_byte(Lane& st, Dsp& e, const float* __restrict__ tab,
                                             int byte, long long sample0, uint32_t& w0,
                                             uint32_t& w1) {
+  // bit k of flips: bit k of the byte differs from the bit before it, as
+  // masks in the top bits of bytes (tame: the previous bit is a bit). The
+  // target (127 or -128, all ones apart) flips with the bit.
+  uint32_t flips[2];
+  int target = 0;
+  if (TAME) {
+    spread_bits((byte ^ ((byte << 1) | st.lb)) & 0xff, flips);
+    target = -st.lb ^ -128;
+    st.lb = byte >> 7;
+  }
   int v[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const int lp = decode_bit(st, (byte >> k) & 1);
+    int lp;
+    if (TAME) {
+      const int flip = byte_sign(flips[k / 4], k % 4);
+      target ^= flip;
+      lp = decode_bit_tame(st, target, flip);
+    } else {
+      lp = decode_bit(st, (byte >> k) & 1);
+    }
     if (DSP) {
-      const float f = TABLE ? tab[lp + 128] : norm8(lp);
+      const float f = TAME ? tab[lp + 128] : norm8(lp);
       float o = __fmaf_rn(e.alpha, __fsub_rn(f, e.prevf), e.prevf);
       if (RAMP == 1) {
         o = __fmul_rn(o, __fmaf_rn(e.gs, e.t, e.g0));
@@ -199,7 +280,7 @@ __device__ __forceinline__ void decode_byte(Lane& st, Dsp& e, const float* __res
 
 // One lane's nb bytes of a tile: in (its row of the byte tile) -> out (its
 // row of the sample tile), two bytes per 16-byte word.
-template <bool DSP, int RAMP, bool TABLE>
+template <bool DSP, int RAMP, bool TAME>
 __device__ __forceinline__ void decode_row(Lane& st, Dsp& e, const float* __restrict__ tab,
                                            const uint8_t* __restrict__ in,
                                            uint32_t* __restrict__ out, int nb,
@@ -208,13 +289,13 @@ __device__ __forceinline__ void decode_row(Lane& st, Dsp& e, const float* __rest
   for (; j + 1 < nb; j += 2) {
     const int pair = *reinterpret_cast<const uint16_t*>(in + j);
     uint4 w;
-    decode_byte<DSP, RAMP, TABLE>(st, e, tab, pair & 0xff, sample0 + 8 * j, w.x, w.y);
-    decode_byte<DSP, RAMP, TABLE>(st, e, tab, pair >> 8, sample0 + 8 * j + 8, w.z, w.w);
+    decode_byte<DSP, RAMP, TAME>(st, e, tab, pair & 0xff, sample0 + 8 * j, w.x, w.y);
+    decode_byte<DSP, RAMP, TAME>(st, e, tab, pair >> 8, sample0 + 8 * j + 8, w.z, w.w);
     *reinterpret_cast<uint4*>(out + 2 * j) = w;
   }
   if (j < nb) {
     uint2 w;
-    decode_byte<DSP, RAMP, TABLE>(st, e, tab, in[j], sample0 + 8 * j, w.x, w.y);
+    decode_byte<DSP, RAMP, TAME>(st, e, tab, in[j], sample0 + 8 * j, w.x, w.y);
     *reinterpret_cast<uint2*>(out + 2 * j) = w;
   }
 }
@@ -230,10 +311,9 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
                     const bool* __restrict__ mask,
                     const float* __restrict__ gain0,
                     const float* __restrict__ gain_slope, bool vec_in, bool vec_out) {
-  __shared__ uint4 in_tile[LANES * DEC_IN_STRIDE / 16];
+  __shared__ uint4 ring[DEC_STAGES][LANES * DEC_IN_STRIDE / 16];
   __shared__ uint4 out_tile[LANES * DEC_OUT_STRIDE / 4];
   __shared__ float norm_tab[DSP ? 256 : 1];
-  uint8_t* in_b = reinterpret_cast<uint8_t*>(in_tile);
   uint32_t* out_w = reinterpret_cast<uint32_t*>(out_tile);
 
   const int tid = threadIdx.x;
@@ -257,49 +337,82 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
     e.g0 = gain0[lane];
     e.gs = gain_slope[lane];
   }
-  const bool table = DSP && tame(st);
+  const bool is_tame = tame(st);
   if (DSP) {
     for (int i = tid; i < 256; i += LANES) norm_tab[i] = norm8(i - 128);
   }
 
-  for (long long b0 = 0; b0 < nbytes; b0 += TILE_BYTES) {
-    const int nb = static_cast<int>(min(static_cast<long long>(TILE_BYTES), nbytes - b0));
-    if (vec_in) {
+  // this thread's 16-byte piece (tid % DEC_IN_VECS) of its rows of every
+  // byte tile, rows tid / DEC_IN_VECS + p * IN_PASS, and of every sample
+  // tile, rows tid / DEC_OUT_VECS + p * OUT_PASS: addresses of tile 0, once
+  constexpr int IN_PASS = LANES / DEC_IN_VECS, OUT_PASS = LANES / DEC_OUT_VECS;
+  const int in_c = tid % DEC_IN_VECS, in_r = tid / DEC_IN_VECS;
+  const int out_c = tid % DEC_OUT_VECS, out_r = tid / DEC_OUT_VECS;
+  const uint8_t* src = bytes + static_cast<long long>(lane0 + in_r) * nbytes + 16 * in_c;
+  uint4* dst = reinterpret_cast<uint4*>(out + static_cast<long long>(lane0 + out_r) * nbytes * 8) +
+               out_c;
+  const long long ntiles = (nbytes + TILE_BYTES - 1) / TILE_BYTES;
+
+  // one commit group per tile, also past the end, so the groups count alike
+  const auto fetch = [&](long long n, int stage) {
+    if (n < ntiles) {
+      const long long b0 = n * TILE_BYTES;
+      const int nb = static_cast<int>(min(static_cast<long long>(TILE_BYTES), nbytes - b0));
+      uint8_t* tile = reinterpret_cast<uint8_t*>(ring[stage]);
+      if (vec_in) {
+        if (16 * in_c < nb) {
 #pragma unroll
-      for (int k = 0; k < TILE_BYTES / 16; ++k) {
-        const int i = tid + k * LANES;
-        const int r = i / (TILE_BYTES / 16), c = i % (TILE_BYTES / 16);
-        if (r < nlanes && 16 * c < nb) {
-          in_tile[r * (DEC_IN_STRIDE / 16) + c] =
-              *reinterpret_cast<const uint4*>(bytes + (lane0 + r) * nbytes + b0 + 16 * c);
+          for (int p = 0; p < DEC_IN_VECS; ++p) {
+            const int r = in_r + p * IN_PASS;
+            if (r < nlanes) {
+              aukit::cp_async<4>(tile + r * DEC_IN_STRIDE + 16 * in_c,
+                                 src + p * IN_PASS * nbytes + b0);
+            }
+          }
+        }
+      } else {
+        for (int i = tid; i < nlanes * TILE_BYTES; i += LANES) {
+          const int r = i / TILE_BYTES, c = i % TILE_BYTES;
+          if (c < nb) tile[r * DEC_IN_STRIDE + c] = bytes[(lane0 + r) * nbytes + b0 + c];
         }
       }
-    } else {
-      for (int i = tid; i < nlanes * TILE_BYTES; i += LANES) {
-        const int r = i / TILE_BYTES, c = i % TILE_BYTES;
-        if (c < nb) in_b[r * DEC_IN_STRIDE + c] = bytes[(lane0 + r) * nbytes + b0 + c];
-      }
     }
-    __syncthreads();  // also: the table is filled before the first tile
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  fetch(0, 0);
+  fetch(1, 1);
+  int stage = 0;  // of tile n
+  for (long long n = 0; n < ntiles; ++n) {
+    const long long b0 = n * TILE_BYTES;
+    const int nb = static_cast<int>(min(static_cast<long long>(TILE_BYTES), nbytes - b0));
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // this thread's copies of tile n
+    // every lane's copies of tile n have landed; tile n - 1 is decoded and
+    // stored: its byte stage and the sample tile are free (also: the table
+    // is filled before the first tile)
+    __syncwarp();
+    fetch(n + 2, (stage + 2) % DEC_STAGES);
     if (active) {
-      const uint8_t* row_in = in_b + tid * DEC_IN_STRIDE;
+      const uint8_t* row_in = reinterpret_cast<const uint8_t*>(ring[stage]) + tid * DEC_IN_STRIDE;
       uint32_t* row_out = out_w + tid * DEC_OUT_STRIDE;
-      if (table) {
+      if (is_tame) {
         decode_row<DSP, RAMP, true>(st, e, norm_tab, row_in, row_out, nb, b0 * 8);
       } else {
         decode_row<DSP, RAMP, false>(st, e, norm_tab, row_in, row_out, nb, b0 * 8);
       }
     }
-    __syncthreads();
+    __syncwarp();
     if (vec_out) {
       // nbytes is even and b0 a multiple of 32, so nb is even: nb / 2 words
+      if (2 * out_c < nb) {
 #pragma unroll
-      for (int k = 0; k < DEC_OUT_VECS; ++k) {
-        const int i = tid + k * LANES;
-        const int r = i / DEC_OUT_VECS, c = i % DEC_OUT_VECS;
-        if (r < nlanes && 2 * c < nb) {
-          uint4* row = reinterpret_cast<uint4*>(out + ((lane0 + r) * nbytes + b0) * 8);
-          row[c] = out_tile[r * (DEC_OUT_STRIDE / 4) + c];
+        for (int p = 0; p < LANES / OUT_PASS; ++p) {
+          const int r = out_r + p * OUT_PASS;
+          if (r < nlanes) {
+            // OUT_PASS rows of 8 * nbytes samples are nbytes 16-byte words
+            dst[p * OUT_PASS / 2 * nbytes + n * DEC_OUT_VECS] =
+                out_tile[r * (DEC_OUT_STRIDE / 4) + out_c];
+          }
         }
       }
     } else {
@@ -310,7 +423,7 @@ dfpwm_decode_kernel(const uint8_t* __restrict__ bytes,
         row[c] = out_w[r * DEC_OUT_STRIDE + c];
       }
     }
-    __syncthreads();  // the next tile overwrites both shared tiles
+    stage = (stage + 1) % DEC_STAGES;
   }
 
   if (active) {
@@ -524,6 +637,25 @@ dfpwm_encode_kernel(const uint32_t* __restrict__ levels,
 
 int blocks_for(int lanes) { return (lanes + LANES - 1) / LANES; }
 
+// One launch of an instantiation of the decoder. 32768 lanes are 7.8 blocks
+// an SM: their rings need the SM's shared memory as shared memory, set once
+// a kernel (aukit::prefer_shared_carveout, kept in a function-local static).
+template <bool DSP, int RAMP>
+int run_decode(const void* bytes, const void* state_in, void* out, void* state_out, int lanes,
+               long long nbytes, float alpha, const void* mask, const void* gain0,
+               const void* gain_slope, void* stream, bool vec_in, bool vec_out) {
+  static const cudaError_t prepared =
+      aukit::prefer_shared_carveout(dfpwm_decode_kernel<DSP, RAMP>);
+  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  dfpwm_decode_kernel<DSP, RAMP><<<blocks_for(lanes), LANES, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(state_in),
+      static_cast<int8_t*>(out), static_cast<int32_t*>(state_out), lanes, nbytes, alpha,
+      static_cast<const bool*>(mask), static_cast<const float*>(gain0),
+      static_cast<const float*>(gain_slope), vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launches the decoder's instantiation for this call: the ramp's time in
 // float while it is exact, 16-byte staging where the rows allow it.
 template <bool DSP>
@@ -533,25 +665,18 @@ int launch_decode(const void* bytes, const void* state_in, void* out, void* stat
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec_in = nbytes % 16 == 0 && aligned(bytes);
   const bool vec_out = nbytes % 2 == 0 && aligned(out);
-  const auto run = [&](auto kernel) {
-    kernel<<<blocks_for(lanes), LANES, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(state_in),
-        static_cast<int8_t*>(out), static_cast<int32_t*>(state_out), lanes, nbytes, alpha,
-        static_cast<const bool*>(mask), static_cast<const float*>(gain0),
-        static_cast<const float*>(gain_slope), vec_in, vec_out);
-  };
   if constexpr (DSP) {
     if (gain0 != nullptr) {
       if (nbytes * 8 <= RAMP_EXACT_SAMPLES) {
-        run(dfpwm_decode_kernel<true, 1>);
-      } else {
-        run(dfpwm_decode_kernel<true, 2>);
+        return run_decode<true, 1>(bytes, state_in, out, state_out, lanes, nbytes, alpha, mask,
+                                   gain0, gain_slope, stream, vec_in, vec_out);
       }
-      return static_cast<int>(cudaGetLastError());
+      return run_decode<true, 2>(bytes, state_in, out, state_out, lanes, nbytes, alpha, mask,
+                                 gain0, gain_slope, stream, vec_in, vec_out);
     }
   }
-  run(dfpwm_decode_kernel<DSP, 0>);
-  return static_cast<int>(cudaGetLastError());
+  return run_decode<DSP, 0>(bytes, state_in, out, state_out, lanes, nbytes, alpha, mask, gain0,
+                            gain_slope, stream, vec_in, vec_out);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
 // Shared skeletons of the lane-recurrence kernels (adpcm.cu, qoa.cu, flac.cu,
-// iir.cu): one thread owns one lane and runs its recurrence over every
-// sample of the call, with the lane's state in registers.
+// iir.cu, dfpwm.cu's encoder): one thread owns one lane and runs its
+// recurrence over every sample of the call, with the lane's state in
+// registers. (dfpwm.cu's decoder keeps a ring of its own: a byte in, eight
+// samples out.)
 //
 // Layout. The wrappers keep the JAX wrappers' lane-major layout: input
 // In[L, T], output Out[L, T], both row-major. A thread reading its own row
@@ -11,17 +13,8 @@
 // would have cost an extra transpose pass over device memory per step on
 // the torch side.
 //
-// Three skeletons:
-//   - scan_rows, the first one (adpcm.cu's IMA decode, kernel (d), alone):
-//     one input and one output tile per block of SCAN_LANES lanes; load,
-//     barrier, compute, barrier, store, barrier, one element a thread and
-//     instruction, nothing asynchronous. Every tile row is padded by 4 bytes,
-//     so with 64-sample tiles a row is an odd number of 4-byte words (17 for
-//     bytes, 33 for int16) and the per-lane row accesses hit 32 distinct
-//     banks. Between the barriers a block has no bytes in flight, and at a
-//     few thousand rows nothing hides that. (d) moves onto window_rows as (e)
-//     has (byte in, int16 out, the same lane interface), and scan_rows goes
-//     with it.
+// Two skeletons, both pipelined: a block is one warp and keeps asynchronous
+// copies (cp.async) two tiles ahead of the one its lanes compute.
 //   - ring_rows, the pipelined one for 4-byte elements (flac.cu: (g);
 //     iir.cu: (h); dfpwm.cu's encoder: (c)): a ring of ASYNC_STAGES tiles per
 //     block of ASYNC_LANES lanes, filled by asynchronous copies (cp.async)
@@ -47,8 +40,9 @@
 //     the grid of device memory, need no narrow copies: once it takes 4-byte
 //     elements these three kernels can ride it and ring_rows can go.)
 //   - window_rows, the pipelined one for 1- and 2-byte elements, with an
-//     output side (adpcm.cu's MS ADPCM decode: (e), int8 in, int16 out;
-//     qoa.cu: (f), int16 in place). Rows of such elements start anywhere: an
+//     output side (adpcm.cu: the IMA decode (d), uint8 in, int16 out, and
+//     the MS ADPCM decode (e), int8 in, int16 out; qoa.cu: (f), int16 in
+//     place). Rows of such elements start anywhere: an
 //     MS ADPCM block's 1010 nibbles put every row on a 2-byte boundary, and
 //     cp.async moves 4 bytes at least, aligned. So a row's tiles are cut on
 //     the 16-byte grid of device memory, not at the row's first sample: tile
@@ -78,8 +72,8 @@
 //     output is wider than the input the lane writes into one output tile
 //     beside it (its stores are on their way before the barrier that lets the
 //     next tile's results land), else the tile is updated in place: 22,528 bytes
-//     of dynamic shared memory a one-warp block for (e), 26,112 for (f), ten
-//     and eight blocks an SM. Tiles of 128 samples, not 64: the work between
+//     of dynamic shared memory a one-warp block for (d) and (e), 26,112 for
+//     (f). Tiles of 128 samples, not 64: the work between
 //     two barriers (copies started, tile stored) is spread over twice the
 //     samples, and a row's pieces in device memory are twice as long.
 //
@@ -94,15 +88,6 @@
 
 namespace aukit {
 
-constexpr int SCAN_LANES = 64;  // threads (= lanes) per block
-constexpr int SCAN_TILE = 64;   // samples per lane per shared tile
-
-// elements per shared tile row: SCAN_TILE plus 4 bytes of padding
-template <typename T>
-struct TileStride {
-  static constexpr int value = SCAN_TILE + 4 / static_cast<int>(sizeof(T));
-};
-
 // int32 arithmetic that wraps, as JAX's and torch's int32 ops do (signed
 // overflow is undefined behaviour in C++, so it goes through uint32).
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -116,47 +101,6 @@ __device__ __forceinline__ int wmul(int a, int b) {
 }
 __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return min(max(v, lo), hi);
-}
-
-inline int scan_blocks(int lanes) { return (lanes + SCAN_LANES - 1) / SCAN_LANES; }
-
-// Runs lane.step(x) -> Out over the T samples of this thread's lane. Every
-// thread of the block must call it (it synchronises the block); threads past
-// the last lane stage and store but do not step.
-template <typename In, typename Out, typename Lane>
-__device__ __forceinline__ void scan_rows(const In* __restrict__ in,
-                                          Out* __restrict__ out, int lanes,
-                                          long long T, Lane& lane) {
-  constexpr int IN_STRIDE = TileStride<In>::value;
-  constexpr int OUT_STRIDE = TileStride<Out>::value;
-  __shared__ In in_tile[SCAN_LANES * IN_STRIDE];
-  __shared__ Out out_tile[SCAN_LANES * OUT_STRIDE];
-
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * SCAN_LANES;
-  const int nlanes = min(SCAN_LANES, lanes - lane0);
-  const bool active = tid < nlanes;
-
-  for (long long t0 = 0; t0 < T; t0 += SCAN_TILE) {
-    const int nt = static_cast<int>(min(static_cast<long long>(SCAN_TILE), T - t0));
-    for (int i = tid; i < nlanes * SCAN_TILE; i += SCAN_LANES) {
-      const int r = i / SCAN_TILE, c = i % SCAN_TILE;
-      if (c < nt) in_tile[r * IN_STRIDE + c] = in[static_cast<long long>(lane0 + r) * T + t0 + c];
-    }
-    __syncthreads();
-    if (active) {
-      const In* row_in = in_tile + tid * IN_STRIDE;
-      Out* row_out = out_tile + tid * OUT_STRIDE;
-#pragma unroll 4
-      for (int j = 0; j < nt; ++j) row_out[j] = lane.step(row_in[j]);
-    }
-    __syncthreads();
-    for (int i = tid; i < nlanes * SCAN_TILE; i += SCAN_LANES) {
-      const int r = i / SCAN_TILE, c = i % SCAN_TILE;
-      if (c < nt) out[static_cast<long long>(lane0 + r) * T + t0 + c] = out_tile[r * OUT_STRIDE + c];
-    }
-    __syncthreads();  // the next tile overwrites both shared tiles
-  }
 }
 
 // -- the pipelined skeleton ---------------------------------------------------------
@@ -387,12 +331,13 @@ constexpr int window_shared_bytes() {
                (std::is_same<In, Out>::value ? 0 : WinRow<Out>::INT4S));
 }
 
-// The launch setting of a kernel on window_rows: as much of the SM as shared
-// memory as its blocks' rings can use (a ring is under the 48 KB a block may
-// ask for by default). It holds for the kernel from then on: a launcher
-// keeps the result in a function-local static and sets it once.
+// The launch setting of a kernel whose blocks keep a ring in shared memory
+// (window_rows, dfpwm.cu's decoder): as much of the SM as shared memory as
+// the rings can use (a ring is under the 48 KB a block may ask for by
+// default). It holds for the kernel from then on: a launcher keeps the
+// result in a function-local static and sets it once.
 template <typename Kernel>
-inline cudaError_t window_prepare(Kernel kernel) {
+inline cudaError_t prefer_shared_carveout(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }

@@ -122,7 +122,7 @@ qoa_lms_kernel(const int16_t* __restrict__ dq, const int32_t* __restrict__ state
 extern "C" int aukit_qoa_lms(const void* dq, const void* state_in, void* out, void* state_out,
                              int lanes, long long T, void* stream) {
   // the fleet's 147,456 lanes are 35 blocks an SM: as many rings as fit
-  static const cudaError_t prepared = aukit::window_prepare(qoa_lms_kernel);
+  static const cudaError_t prepared = aukit::prefer_shared_carveout(qoa_lms_kernel);
   if (prepared != cudaSuccess) return static_cast<int>(prepared);
   const auto* in = static_cast<const int16_t*>(dq);
   auto* res = static_cast<int16_t*>(out);

@@ -309,11 +309,15 @@ def chained_vs_plain(kernel, plain, calls, state, extra=()) -> tuple[bool, int]:
 
 
 def window_kernel_cases(cases) -> dict:
-    """Kernels (e) and (f) against their plain versions on every case of
-    ``msadpcm_cases`` and ``qoa_cases`` (tests/torch_kernel_cases.py), all
-    lanes, outputs and final states, chained calls from a non-zero state.
-    -> {kernel: [(case, equal, max |error|)]}."""
-    found = {"msadpcm": [], "qoa": []}
+    """Kernels (d), (e) and (f) against their plain versions on every case of
+    ``ima_cases``, ``msadpcm_cases`` and ``qoa_cases``
+    (tests/torch_kernel_cases.py), all lanes, outputs and final states,
+    chained calls from a non-zero state. -> {kernel: [(case, equal, max
+    |error|)]}."""
+    found = {"ima": [], "msadpcm": [], "qoa": []}
+    for name, calls, state in cases.ima_cases("cuda"):
+        found["ima"].append((name, *chained_vs_plain(ka.ima_decode_kernel, ka.ima_decode_ref,
+                                                     calls, state)))
     for name, calls, state, coefs in cases.msadpcm_cases("cuda"):
         found["msadpcm"].append((name, *chained_vs_plain(
             ka.msadpcm_decode_kernel, ka.msadpcm_decode_ref, calls, state, coefs)))
@@ -323,29 +327,53 @@ def window_kernel_cases(cases) -> dict:
     return found
 
 
+def decode_kernel_cases(cases) -> dict:
+    """Kernels (a) and (b) against their plain versions on every case of
+    ``decode_cases`` (tests/torch_kernel_cases.py): states on both sides of
+    each bound of the tame test, chained calls whose first leaves wild lanes
+    tame, the mixed fleet's 4000-byte rows; outputs and states after every
+    call. -> {kernel: [(case, equal, max |error|)]}."""
+    found = {"dfpwm_decode": [], "dfpwm_decode_dsp": []}
+    for name, calls, state in cases.decode_cases("cuda"):
+        for key, extra in (("dfpwm_decode", ()), ("dfpwm_decode_dsp", (ALPHA_48K,))):
+            kernel, plain = getattr(kc, f"{key}_kernel"), getattr(kc, f"{key}_ref")
+            st = ref_st = state
+            err = 0
+            for x in calls:
+                (out, st), (ref, ref_st) = kernel(x, st, *extra), plain(x, ref_st, *extra)
+                err = max(err, same(out, ref)[1], same(st, ref_st)[1])
+            found[key].append((name, err == 0, err))
+    return found
+
+
 def phase_redesigned_kernel_paths() -> dict:
-    """Every path of the kernels redesigned for Hopper, (b), (c), (e), (f),
-    (g) and (h), against their plain versions on the same CUDA tensors, max |error| 0, on
-    the cases of tests/torch_kernel_cases.py: for (b) the table's 256 lowpass
-    words, states outside their ranges (the division path), odd and short
-    rows, ragged tiles and lanes, a misaligned base, gains past the rails and
-    to +-inf and NaN, masked lanes whose state advances; kernel (a), which
-    shares the staging, on the same bytes; for (g) rows on and off the
+    """Every path of the kernels redesigned for Hopper, (a) to (h), against
+    their plain versions on the same CUDA tensors, max |error| 0, on the
+    cases of tests/torch_kernel_cases.py: for (a) and (b) states on both
+    sides of each bound of the tame test (the short step and the epilogue's
+    table, or predict() and the division), chained calls from wild states
+    into tame ones, the mixed fleet's 4000-byte rows; for (b), and (a) on
+    the same bytes, the table's 256 lowpass words, states outside their
+    ranges, odd and short rows, ragged tiles and lanes, a misaligned base,
+    gains past the rails and to +-inf and NaN, masked lanes whose state
+    advances; for (g) rows on and off the
     16-byte grid, every tap count, wide and negative shifts, ragged blocks;
     for (c) tame and wild states, levels on both rails, every store width,
     ragged tiles, a misaligned base, chained calls; for (h) row lengths from
     one sample to a 44.1 kHz block's 4458, alphas near 0 and 1, denormals;
-    for (e) and (f) rows on and off the 16-byte grid (the engine's 1010
-    nibbles), odd lengths, one sample, less than a tile, ragged lanes, bases
-    off the grid, chained calls, (e) with negative, capped and floored deltas
-    and every coefficient pair, (f) from states that wrap int32.
+    for (d), (e) and (f) rows on and off the 16-byte grid (the engine's 504
+    and 1010 nibbles), odd lengths, one sample, less than a tile, ragged
+    lanes, bases off the grid, chained calls, (d) with indices at 0, 88 and
+    out of range and predictors at both rails, (e) with negative, capped and
+    floored deltas and every coefficient pair, (f) from states that wrap
+    int32.
     Then the ramp's 64-bit time (more than 2^24 samples a lane) against the
     plain epilogue over kernel (a)'s raw samples: the plain decode loop
     would take hours there. Returns max |error| by kernel."""
     cases = load_test_module("torch_kernel_cases")
     errs = {"dfpwm_decode": 0, "dfpwm_decode_dsp": 0, "lpc_restore": 0, "dfpwm_encode": 0,
             "iir_zero": 0}
-    for kernel, found in window_kernel_cases(cases).items():
+    for kernel, found in {**decode_kernel_cases(cases), **window_kernel_cases(cases)}.items():
         for name, ok, err in found:
             check(ok, f"{kernel} kernel == plain on case {name} (max |error| {err})")
         errs[kernel] = 0
@@ -669,6 +697,62 @@ def phase_step_breakdown(tones: torch.Tensor) -> None:
         htod_ms_per_step=round(busy_ms(copies) / 2, 3),
         busy_kernels=round(busy_ms(kernels) / wall, 4),
         busy_with_copies=round(busy_ms(kernels + copies) / wall, 4))
+
+
+def phase_mixed_step_breakdown(tones: torch.Tensor) -> None:
+    """Where the time of one full-width mixed_48k_32k step goes (half the
+    lanes at 32 kHz: kernel (a), then dsp_chain's resample through the FMA
+    kernel; half at 48 kHz: kernel (b)): the step fed from host memory (as in
+    main_path) and fed from the card, and, under torch.profiler over two
+    host-fed steps, the device time of kernels (a) and (b), of the FMA
+    kernel, of the host->device copies and of the other torch ops, and the
+    device's busy share of the wall time."""
+    host = np.tile(tones.cpu().numpy(), (1, 4))  # 4 s per lane
+    specs = [LaneSpec("dfpwm", 48000 if i % 2 == 0 else 32000) for i in range(FULL_LANES)]
+
+    def engine(feed):
+        eng = BatchStreamEngine(specs, device="cuda")
+        eng.feed_array(feed)
+        eng.step()  # first step: allocations
+        return eng
+
+    def step_ms(eng) -> float:
+        t0 = sync_time()
+        eng.step()
+        return (sync_time() - t0) * 1e3
+
+    host_eng = engine(host)
+    host_step = min(step_ms(host_eng), step_ms(host_eng))
+    dev_eng = engine(torch.tensor(host, device="cuda"))
+    dev_step = min(step_ms(dev_eng), step_ms(dev_eng))
+    del dev_eng
+    torch.cuda.empty_cache()
+
+    host_eng = engine(host)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = sync_time()
+        host_eng.step()
+        host_eng.step()
+        wall = (sync_time() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {"decode": "dfpwm_decode_kernel<false", "decode_dsp": "dfpwm_decode_kernel<true",
+             "fma": "fma_kernel", "htod": "Memcpy HtoD"}
+    spans = {k: [(e.time_range.start, e.time_range.end) for e in dev if v in e.name]
+             for k, v in names.items()}
+    spans["other"] = [(e.time_range.start, e.time_range.end) for e in dev
+                      if not any(v in e.name for v in names.values())]
+    check(spans["decode"] and spans["decode_dsp"], "the mixed step's profile shows kernels (a), (b)")
+    everything = [iv for ivs in spans.values() for iv in ivs]
+    kernels_only = [iv for k, ivs in spans.items() if k != "htod" for iv in ivs]
+    say("step_breakdown", case="mixed_48k_32k", lanes=FULL_LANES,
+        host_fed_step_ms=round(host_step, 3), device_fed_step_ms=round(dev_step, 3),
+        profiled_steps=2, profiled_wall_ms=round(wall, 3), device_events=len(dev),
+        **{f"{k}_ms_per_step": round(busy_ms(v) / 2, 3) for k, v in spans.items()},
+        busy_kernels=round(busy_ms(kernels_only) / wall, 4),
+        busy_with_copies=round(busy_ms(everything) / wall, 4))
+    del host_eng
+    torch.cuda.empty_cache()
 
 
 def phase_times() -> None:
@@ -2062,6 +2146,7 @@ def main() -> None:
     del levels
     torch.cuda.empty_cache()
     phase_step_breakdown(tones_u8)
+    phase_mixed_step_breakdown(tones_u8)
     del tones_u8
     torch.cuda.empty_cache()
     specs, groups = block_fleet_data()

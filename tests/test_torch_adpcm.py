@@ -24,6 +24,7 @@ from aukit_tpu_torch.kernels.adpcm_cuda import (ima_decode_kernel, ima_decode_re
 from tests import torch_kernel_cases as kernel_cases
 
 MSADPCM_CASES = [c[0] for c in kernel_cases.msadpcm_cases("cpu")]
+IMA_CASES = [c[0] for c in kernel_cases.ima_cases("cpu")]
 
 
 def t(a, dtype=None):
@@ -103,6 +104,38 @@ def test_ima_out_of_range_step_index_defined():
     got, _ = ima_decode_ref(t(nib, np.uint8), t(pred0), t(sidx_bad))
     np.testing.assert_array_equal(np.asarray(pal), exp)
     np.testing.assert_array_equal(got.numpy(), exp)
+
+
+@pytest.mark.parametrize("name", IMA_CASES)
+def test_ima_kernel_cases_plain_matches_scan_and_pallas(name):
+    """The cases that hold the CUDA kernel to its plain version on the card
+    (tests/torch_kernel_cases.py) hold the plain version to the JAX scan and
+    the Pallas kernel (interpret mode) here: chained calls, samples and
+    final state bit-equal; each case has the indices 0 and 88 and the
+    predictors -32768 and 32767, and the wider ones the out-of-range
+    indices. Lanes that enter a call with such an index, or whose row holds
+    bytes above 15, are held to the Pallas kernel alone: the scan looks the
+    step and the index delta up by ``jnp.take``'s rule (see
+    ``test_ima_out_of_range_step_index_defined``)."""
+    _, calls, (pred, sidx) = next(c for c in kernel_cases.ima_cases("cpu") if c[0] == name)
+    assert {0, 88} <= set(sidx.tolist()) and {-32768, 32767} <= set(pred.tolist())
+    if len(pred) > 35:
+        assert set(kernel_cases.IMA_WILD_INDICES) <= set(sidx.tolist())
+    if len(pred) > 5:
+        assert any(bool((nibs > 15).any()) for nibs in calls)
+    st, pal_st = (pred, sidx), (pred.numpy(), sidx.numpy())
+    for nibs in calls:
+        in_range = (pal_st[1] >= 0) & (pal_st[1] <= 88) & (nibs.numpy() <= 15).all(axis=1)
+        got, st = ima_decode_ref(nibs, *st)
+        ref, ref_st = ima_adpcm_scan(jnp.asarray(nibs.numpy(), jnp.int32),
+                                     jnp.asarray(pal_st[0]), jnp.asarray(pal_st[1]))
+        pal, pal_st = ima_decode_pallas(nibs.numpy(), *pal_st, interpret=True)
+        pal_st = tuple(np.asarray(a) for a in pal_st)
+        np.testing.assert_array_equal(got.numpy()[in_range], np.asarray(ref)[in_range])
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
+        assert_state_equal(st, pal_st)
+        for g, w in zip(kernel_state_to_numpy(st), ref_st):
+            np.testing.assert_array_equal(g[in_range], np.asarray(w)[in_range])
 
 
 @pytest.mark.parametrize("lanes,T", [(9, 70), (4, 131)])

@@ -50,6 +50,8 @@ ENCODE_CASES = [c[0] for c in kernel_cases.encode_cases("cpu")]
 IIR_CASES = [c[0] for c in kernel_cases.iir_cases("cpu")]
 QOA_CASES = [c[0] for c in kernel_cases.qoa_cases("cpu")]
 MSADPCM_CASES = [c[0] for c in kernel_cases.msadpcm_cases("cpu")]
+IMA_CASES = [c[0] for c in kernel_cases.ima_cases("cpu")]
+DECODE_CASES = [c[0] for c in kernel_cases.decode_cases("cpu")]
 
 
 def random_state(rng, lanes, device):
@@ -112,6 +114,24 @@ def test_decode_dsp_kernel_paths_match_plain(name):
     assert_same(raw, raw_new, ref, ref_new)
     if name.startswith("every_lowpass_word"):
         assert len(torch.unique(raw)) == 256
+
+
+@pytest.mark.parametrize("name", DECODE_CASES)
+def test_decode_kernel_cases_match_plain(name):
+    """Kernels (a) and (b) at the bounds of their tame test (the short step
+    and the epilogue's table on one side, predict() and the division on the
+    other), over chained calls whose first leaves wild lanes tame, and on the
+    mixed fleet's 4000-byte rows: outputs and state bit-equal after every
+    call."""
+    _, calls, st = next(c for c in kernel_cases.decode_cases("cuda") if c[0] == name)
+    raw_st = ref_raw_st = dsp_st = ref_dsp_st = st
+    for data in calls:
+        out, raw_st = dfpwm_decode_kernel(data, raw_st)
+        ref, ref_raw_st = dfpwm_decode_ref(data, ref_raw_st)
+        assert_same(out, raw_st, ref, ref_raw_st)
+        out, dsp_st = dfpwm_decode_dsp_kernel(data, dsp_st, ALPHA_48K)
+        ref, ref_dsp_st = dfpwm_decode_dsp_ref(data, ref_dsp_st, ALPHA_48K)
+        assert_same(out, dsp_st, ref, ref_dsp_st)
 
 
 @pytest.mark.parametrize("name", LPC_CASES)
@@ -288,6 +308,22 @@ def test_msadpcm_kernel_cases_match_plain(name):
     for nibs in calls:
         out, st = msadpcm_decode_kernel(nibs, *st, *coefs)
         ref, ref_st = msadpcm_decode_ref(nibs, *ref_st, *coefs)
+        assert out.dtype == torch.int16 and torch.equal(out, ref)
+        assert_kernel_state_equal(st, ref_st)
+
+
+@pytest.mark.parametrize("name", IMA_CASES)
+def test_ima_kernel_cases_match_plain(name):
+    """Every path of the IMA decode on window_rows: the same row shapes, the
+    engine's 504-nibble rows, bases off the grid, chained calls, the index
+    at 0 and 88 and out of range (-1, 89, 255, -2^31: the warp's clamped
+    lookup), predictors at both rails, runs of nibbles that drive the index
+    to both ends: samples and state bit-equal."""
+    _, calls, st = next(c for c in kernel_cases.ima_cases("cuda") if c[0] == name)
+    ref_st = st
+    for nibs in calls:
+        out, st = ima_decode_kernel(nibs, *st)
+        ref, ref_st = ima_decode_ref(nibs, *ref_st)
         assert out.dtype == torch.int16 and torch.equal(out, ref)
         assert_kernel_state_equal(st, ref_st)
 

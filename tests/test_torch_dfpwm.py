@@ -199,6 +199,40 @@ def test_kernel_cases_plain_versions_match_pallas_interpret(name):
     assert_state_equal(want_st, got_st)
 
 
+DECODE_CASES = [c[0] for c in kernel_cases.decode_cases("cpu")]
+
+
+def is_tame(st) -> bool:
+    """Every lane inside the decoder's tame ranges (csrc/dfpwm.cu tame())."""
+    q, s, lb, pq, lp = (a.numpy() for a in st.leaves())
+    in8 = [(v >= -128).all() and (v <= 127).all() for v in (q, pq, lp)]
+    return all(in8) and (s >= 0).all() and (s <= 1023).all() and np.isin(lb, (0, 1)).all()
+
+
+@pytest.mark.parametrize("name", DECODE_CASES)
+def test_decode_cases_plain_versions_match_pallas_interpret(name):
+    """The cases at the bounds of the decoder's tame test, chained calls and
+    the mixed fleet's 4000-byte rows, which the card holds kernels (a) and
+    (b) to: both plain versions against the Pallas kernels in interpret
+    mode, samples and state bit-equal after every call; the first call of
+    ``wild_then_tame`` starts outside the ranges and leaves every lane in."""
+    _, calls, st = next(c for c in kernel_cases.decode_cases("cpu") if c[0] == name)
+    jst = JaxState(*(jnp.asarray(leaf.numpy()) for leaf in st.leaves()))
+    raw_st = dsp_st = st
+    for call, data in enumerate(calls):
+        want, want_st = kp.dfpwm_decode_pallas(data.numpy(), jst, interpret=True)
+        got, raw_st = dfpwm_decode_kernel(data, raw_st)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert_state_equal(want_st, raw_st)
+        want, _ = kp.dfpwm_decode_dsp_pallas(data.numpy(), jst, ALPHA_48K, interpret=True)
+        got, dsp_st = dfpwm_decode_dsp_kernel(data, dsp_st, ALPHA_48K)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert_state_equal(want_st, dsp_st)
+        jst = want_st
+        if name == "wild_then_tame" and call == 0:
+            assert not is_tame(st) and is_tame(raw_st)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     data = torch.zeros((2, 4), dtype=torch.uint8)
     launches = (dfpwm_decode_kernel.launches, dfpwm_decode_dsp_kernel.launches)

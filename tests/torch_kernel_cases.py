@@ -1,9 +1,10 @@
 """Inputs that reach every path of the port's redesigned CUDA kernels: the
-fused DFPWM decode + DSP and the DFPWM encode (``csrc/dfpwm.cu``), the FLAC
-LPC restore (``csrc/flac.cu``) and the zero-state lowpass (``csrc/iir.cu``),
-the last three on the pipelined skeleton ``ring_rows`` of
-``csrc/lane_scan.cuh``; the QOA LMS (``csrc/qoa.cu``) and the MS ADPCM decode
-(``csrc/adpcm.cu``) on its ``window_rows``. One definition for the card tests
+DFPWM decode, with and without its fused DSP, and the DFPWM encode
+(``csrc/dfpwm.cu``), the FLAC LPC restore (``csrc/flac.cu``) and the
+zero-state lowpass (``csrc/iir.cu``), the last three on the pipelined
+skeleton ``ring_rows`` of ``csrc/lane_scan.cuh``; the QOA LMS
+(``csrc/qoa.cu``) and the IMA and MS ADPCM decodes (``csrc/adpcm.cu``) on its
+``window_rows``. One definition for the card tests
 (``tests/test_torch_cuda.py``) and for ``chip_smoke.py``, which both load
 this file by path and hold each case's kernel output against the plain
 version, max |error| 0, and for the CPU tests (``tests/test_torch_dfpwm.py``,
@@ -122,6 +123,58 @@ def dsp_cases(device="cuda", nonfinite: bool = True):
         slope = special[(np.arange(lanes) // 8) % 8]
         yield ("gain_inf_nan", rail_bytes(rng, lanes, 64, device), tame_state(rng, lanes, device),
                None, _gain(g0, slope, device))
+
+
+def _with(st: DfpwmState, field: str, lanes, values) -> DfpwmState:
+    """``st`` with ``field`` set to ``values`` on ``lanes``."""
+    leaves = dict(zip(("charge", "strength", "previous_bit", "previous_charge", "lowpass"),
+                      (a.cpu().numpy().copy() for a in st.leaves())))
+    leaves[field][lanes] = values
+    return _state(leaves.values(), st.charge.device)
+
+
+# Words just inside and just outside the decoder's tame ranges (csrc/dfpwm.cu
+# tame(): charge, previous charge, lowpass in [-128, 127], strength in
+# [0, 1023], previous bit 0 or 1), each on lanes whose other words are tame.
+TAME_BOUNDS = {"strength": (-1, 0, 7, 8, 1023, 1024), "charge": (-129, -128, 127, 128),
+               "previous_charge": (-129, -128, 127, 128), "lowpass": (-129, -128, 127, 128),
+               "previous_bit": (0, 1, 2, -1)}
+
+
+def decode_cases(device="cuda"):
+    """-> (name, [bytes u8[L, B] of each chained call], state) of the DFPWM
+    decode, raw and fused: for each word of the state its values on both
+    sides of each bound of the tame test, those inside on the 32 lanes of a
+    first block (a block of tame lanes) and those outside on 4 lanes each of
+    a second, on rows of 48 bytes (the 16-byte grid) and of 40; a chained
+    pair of calls whose first call starts from states just outside the
+    ranges and leaves every lane tame (it opens with 4 bytes of alternating
+    bits: the strength falls, the previous bit becomes a bit, the words move
+    back into range), so the second runs the tame step from the state the
+    first left; rows of 4000 bytes, the mixed fleet's 32 kHz row length."""
+    rng = np.random.default_rng(56)
+    for field, values in TAME_BOUNDS.items():
+        low, high = (0, 1023) if field == "strength" else (0, 1) if field == "previous_bit" \
+            else (-128, 127)
+        inside = [v for v in values if low <= v <= high]
+        outside = [v for v in values if not low <= v <= high]
+        lanes = 32 + 4 * len(outside)
+        st = _with(tame_state(rng, lanes, "cpu"), field, np.arange(lanes),
+                   np.concatenate([np.resize(inside, 32), np.repeat(outside, 4)]))
+        for nbytes in (48, 40):
+            yield (f"tame_bounds_{field}_{nbytes}", [_bytes(rng, lanes, nbytes, device)],
+                   _state((a.numpy() for a in st.leaves()), device))
+    outside = [(f, v) for f, vs in TAME_BOUNDS.items() for v in vs
+               if v in (-129, 128, -1, 1024, 2)]
+    lanes = 3 * len(outside)
+    st = tame_state(rng, lanes, "cpu")
+    for i, (field, v) in enumerate(outside):
+        st = _with(st, field, np.arange(3 * i, 3 * i + 3), v)
+    first = _bytes(rng, lanes, 24, device)
+    first[:, :4] = 0x55
+    yield "wild_then_tame", [first, _bytes(rng, lanes, 40, device)], \
+        _state((a.numpy() for a in st.leaves()), device)
+    yield "mixed_fleet_rows_4000", [_bytes(rng, 3, 4000, device)], tame_state(rng, 3, device)
 
 
 def _i32(a, device) -> torch.Tensor:
@@ -370,3 +423,46 @@ def msadpcm_cases(device="cuda"):
     for skip in (1, 8, 16):
         lanes, T = 41, 404
         yield f"base_plus_{skip}", [_off_base(nibs(lanes, T), skip)], *state(lanes)
+
+
+# Incoming IMA step indices that a malformed header may carry: the lookup
+# clamps them, the raw index feeds one update.
+IMA_WILD_INDICES = (-1, 89, 255, -(1 << 31))
+
+
+def ima_cases(device="cuda"):
+    """-> (name, [nibbles u8[L, T] of each chained call], (predictor,
+    step_index)) of the IMA decode kernel: ``WINDOW_SHAPES``, the engine's
+    504-sample rows (every other row off the 16-byte grid), bases 1, 8 and 16
+    bytes into a tensor at 41 x 404. In every case: step indices 0 and 88 and
+    predictors -32768 and 32767 on the first lanes; on lanes 32 and beyond
+    (a second warp, so the first keeps the in-range path) the out-of-range
+    indices -1, 89, 255 and -2^31; every nibble 0..15; rows whose runs of
+    nibble 7 (15) then 0 (8) drive the index to 88 and back to 0 and the
+    predictor to a rail; rows whose second half holds bytes 16..255, outside
+    the codec's nibbles, which the plain version reads as sign (byte >= 8)
+    and magnitude (byte & 7)."""
+    rng = np.random.default_rng(57)
+
+    def nibs(lanes, T):
+        x = rng.integers(0, 16, (lanes, T)).astype(np.uint8)
+        x[2::7, : T // 2], x[2::7, T // 2:] = 7, 0
+        x[3::7, : T // 2], x[3::7, T // 2:] = 15, 8
+        x[4::7, :16] = np.arange(16)[: min(T, 16)]
+        x[5::7, T // 2:] = rng.integers(16, 256, x[5::7, T // 2:].shape)
+        return torch.tensor(x, device=device)
+
+    def state(lanes):
+        pred = rng.integers(-32768, 32768, lanes)
+        sidx = rng.integers(0, 89, lanes)
+        pred[:2], sidx[:2] = (-32768, 32767), (0, 88)
+        wild = np.arange(32, lanes)
+        sidx[wild] = np.resize(IMA_WILD_INDICES, len(wild))
+        return _i32(pred, device), _i32(sidx, device)
+
+    for lanes, calls in (*WINDOW_SHAPES, (35, [504])):
+        yield (f"shape_{lanes}x{'+'.join(map(str, calls))}", [nibs(lanes, T) for T in calls],
+               state(lanes))
+    for skip in (1, 8, 16):
+        lanes, T = 41, 404
+        yield f"base_plus_{skip}", [_off_base(nibs(lanes, T), skip)], state(lanes)

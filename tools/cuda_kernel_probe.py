@@ -7,6 +7,7 @@ JAX):
     python3 tools/cuda_kernel_probe.py sass  [--csrc DIR] [--out DIR] [PATTERN ...]
     python3 tools/cuda_kernel_probe.py check [--csrc DIR]
     python3 tools/cuda_kernel_probe.py bench [--csrc DIR] [--iters N]
+    python3 tools/cuda_kernel_probe.py bench --only KERNEL ... [--shape LxT ...]
 
 ``sass`` builds the kernel library, prints ``ptxas -v``'s registers, spills
 and shared memory of every kernel whose demangled name contains one of the
@@ -19,21 +20,24 @@ the largest loop. The DFPWM decode loop holds 16 samples (two bytes), the
 encode loop 32 (one word of bits out; the first version's held 8), so the
 count over that is the instructions per sample; the LPC loops hold as many
 samples as the source unrolls, the lowpass's tile 64; the QOA LMS and the MS
-ADPCM decode hold four 16-byte groups (32 and 64 samples) in the loop over a
-whole tile, and the tile loop around it (the largest: 128 samples with their
-copies, stores and barriers) holds one more group for a row's edge tiles; the
-IMA decode holds 4 samples in its compute loop. ``--out`` keeps each kernel's
-SASS in a file.
+ADPCM and IMA decodes hold four 16-byte groups (32, 64 and 64 samples) in
+the loop over a whole tile, and the tile loop around it (the largest: 128
+samples with their copies, stores and barriers) holds one more group for a
+row's edge tiles. ``--out`` keeps each kernel's SASS in a file.
 
 ``check`` holds each kernel against its plain version and times nothing:
-(a), (b), (d) and (g) at a small shape, (c), (e), (f) and (h) on every case
-of tests/torch_kernel_cases.py. ``bench`` does the same, then times every
+(a), (b), (d) and (g) at a small shape, (a) to (h) on every case of
+tests/torch_kernel_cases.py. ``bench`` does the same, then times every
 kernel alone by CUDA events at the shapes chip_smoke.py times them (random
 bytes instead of encoded tones; (c) also at a transcode window's two
 launches, (h) at a 48 kHz and a 44.1 kHz fleet step's rows, (d), (e), (f)
 at bench.py's 16384 lanes and at the one launch of a block-fleet window),
 and a transcode window's three encoders on windows that live on the card, in
 sequence and through ``encode_windows_many``.
+
+``bench --only`` times only the kernels named (``dfpwm_decode``,
+``dfpwm_decode_dsp``, ``ima``, ``msadpcm``, ``qoa``) at their shapes, or the
+block kernels at ``--shape``'s, without the checks.
 
 ``--csrc DIR`` builds another directory of sources (an earlier commit's
 ``aukit_tpu_torch/csrc``) instead, to compare two versions on one card in
@@ -167,7 +171,8 @@ def checks(rng) -> None:
     cs.check(ok, "ima_decode kernel == plain")
 
     cases = cs.load_test_module("torch_kernel_cases")
-    for kernel, found in cs.window_kernel_cases(cases).items():
+    for kernel, found in {**cs.decode_kernel_cases(cases),
+                          **cs.window_kernel_cases(cases)}.items():
         for name, ok, _err in found:
             cs.say("probe_check", kernel=kernel, case=name, equal=ok)
             cs.check(ok, f"{kernel} kernel == plain on case {name}")
@@ -219,6 +224,37 @@ def bench_block_kernels(rng, best, names, shapes=()) -> None:
             torch.cuda.empty_cache()
 
 
+DFPWM_DECODERS = ("dfpwm_decode", "dfpwm_decode_dsp")
+
+
+def bench_dfpwm_decoders(rng, best, names) -> None:
+    """(a) at the headline shape, the mixed fleet's 32 kHz group and 512
+    bytes; (b) at an identity step's 6000 bytes and 512, without and with a
+    gain ramp: the wrapper's call by CUDA events."""
+    full = cs.FULL_LANES
+    if "dfpwm_decode" in names:
+        for lanes, nbytes in ((full, 24576), (full // 2, 4000), (full, 512)):
+            data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
+            st = cs.random_state(rng, lanes)
+            cs.say("probe_time", kernel="dfpwm_decode", lanes=lanes, bytes=nbytes,
+                   ms=round(best(lambda: kc.dfpwm_decode_kernel(data, st)), 4))
+            del data
+    if "dfpwm_decode_dsp" in names:
+        for lanes, nbytes in ((full, 6000), (full, 512)):
+            data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
+            st = cs.random_state(rng, lanes)
+            live = torch.ones(lanes, dtype=torch.bool, device="cuda")
+            gain = (torch.full((lanes,), 0.7, device="cuda"),
+                    torch.full((lanes,), 1e-6, device="cuda"))
+            cs.say("probe_time", kernel="dfpwm_decode_dsp", lanes=lanes, bytes=nbytes,
+                   ms=round(best(lambda: kc.dfpwm_decode_dsp_kernel(data, st, cs.ALPHA_48K, live)),
+                            4),
+                   gain_ms=round(best(lambda: kc.dfpwm_decode_dsp_kernel(
+                       data, st, cs.ALPHA_48K, live, gain)), 4))
+            del data
+    torch.cuda.empty_cache()
+
+
 def say_clocks() -> None:
     """The SM clock right after the timed kernels, beside its maximum."""
     got = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -236,34 +272,18 @@ def cmd_bench(args) -> None:
         return min(cs.event_ms(fn, args.iters) for _ in range(3))
 
     if args.only:
-        bench_block_kernels(rng, best, args.only,
+        bench_dfpwm_decoders(rng, best, [k for k in DFPWM_DECODERS if k in args.only])
+        bench_block_kernels(rng, best, [k for k in args.only if k in BLOCK_KERNEL_NAMES],
                             [tuple(map(int, sh.split("x"))) for sh in args.shape or ()])
         say_clocks()
         print(smi, flush=True)
         return
     checks(rng)
-
-    full = cs.FULL_LANES
-    for lanes, nbytes in ((full, 24576), (full // 2, 4000), (full, 512)):
-        data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
-        st = cs.random_state(rng, lanes)
-        cs.say("probe_time", kernel="dfpwm_decode", lanes=lanes, bytes=nbytes,
-               ms=round(best(lambda: kc.dfpwm_decode_kernel(data, st)), 4))
-        del data
-    for lanes, nbytes in ((full, 6000), (full, 512)):
-        data = torch.randint(0, 256, (lanes, nbytes), dtype=torch.uint8, device="cuda")
-        st = cs.random_state(rng, lanes)
-        live = torch.ones(lanes, dtype=torch.bool, device="cuda")
-        gain = (torch.full((lanes,), 0.7, device="cuda"), torch.full((lanes,), 1e-6, device="cuda"))
-        cs.say("probe_time", kernel="dfpwm_decode_dsp", lanes=lanes, bytes=nbytes,
-               ms=round(best(lambda: kc.dfpwm_decode_dsp_kernel(data, st, cs.ALPHA_48K, live)), 4),
-               gain_ms=round(best(lambda: kc.dfpwm_decode_dsp_kernel(
-                   data, st, cs.ALPHA_48K, live, gain)), 4))
-        del data
+    bench_dfpwm_decoders(rng, best, DFPWM_DECODERS)
     torch.cuda.empty_cache()
     # (c): full width, then a transcode window's two launches (mono rows of
     # one second, interleaved stereo rows of twice the length)
-    for lanes, n in ((full, 48000), (cs.TRANSCODE_MONO, 48000), (cs.TRANSCODE_STEREO, 96000)):
+    for lanes, n in ((cs.FULL_LANES, 48000), (cs.TRANSCODE_MONO, 48000), (cs.TRANSCODE_STEREO, 96000)):
         x = torch.randint(-128, 128, (lanes, n), dtype=torch.int8, device="cuda")
         st = cs.DfpwmState.zeros(lanes, "cuda")
         cs.say("probe_time", kernel="dfpwm_encode", lanes=lanes, samples=n,
@@ -321,7 +341,8 @@ def main() -> None:
     p = sub.add_parser("bench")
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--only", nargs="*", metavar="KERNEL",
-                   help="time only these of ima, msadpcm, qoa (and skip the checks)")
+                   choices=[*DFPWM_DECODERS, *BLOCK_KERNEL_NAMES],
+                   help="time only these kernels (and skip the checks)")
     p.add_argument("--shape", nargs="*", metavar="LANESxSAMPLES",
                    help="with --only: these shapes instead of the bench and fleet shapes")
     p.set_defaults(fn=cmd_bench)
