@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import require_device
+
 # -- spec (aukit_tpu/codecs/dfpwm.py:36-43) ----------------------------------------
 
 PREC = 10
@@ -167,26 +169,38 @@ def dfpwm_encode(levels_i32: torch.Tensor, state: DfpwmState):
     return enc, DfpwmState(q, s, lb, state.previous_charge, state.lowpass)
 
 
-# -- host-convenience paths ----------------------------------------------------------
+# -- whole-buffer entry points ----------------------------------------------------------
 
-def decode_dfpwm_bytes(data: bytes, state: DfpwmState | None = None, device="cpu"):
-    """Whole-buffer decode: bytes -> (np.int32[n*8], DfpwmState)."""
+def decode_dfpwm_bytes(data: bytes, state: DfpwmState | None = None, device="cuda"):
+    """Whole-buffer decode: bytes -> (np.int32[n*8], DfpwmState), through
+    ``dfpwm_decode_kernel`` on ``device`` (the CUDA kernel; pass
+    ``device="cpu"`` for its plain version)."""
+    from ..kernels.dfpwm_cuda import dfpwm_decode_kernel  # that module builds on this one
+
+    device = require_device(device, "decode_dfpwm_bytes")
     raw = torch.tensor(np.frombuffer(bytes(data), np.uint8)[None, :], device=device)
     if state is None:
         state = DfpwmState.zeros(1, device)
-    out, state = dfpwm_decode(raw, state)
-    return out[0].cpu().numpy(), state
+    out, state = dfpwm_decode_kernel(raw, state)
+    return out[0].to(torch.int32).cpu().numpy(), state
 
 
-def encode_dfpwm_bytes(levels, state: DfpwmState | None = None, device="cpu"):
-    """Whole-buffer encode: int levels [-128,127] -> (bytes, DfpwmState).
-    Length is truncated to a multiple of 8 samples (the encoder consumes
-    whole bytes)."""
+def encode_dfpwm_bytes(levels, state: DfpwmState | None = None, device="cuda"):
+    """Whole-buffer encode: int levels [-128,127] -> (bytes, DfpwmState),
+    through ``dfpwm_encode_kernel`` on ``device`` (pass ``device="cpu"`` for
+    its plain version). Length is truncated to a multiple of 8 samples (the
+    encoder consumes whole bytes)."""
+    from ..kernels.dfpwm_cuda import dfpwm_encode_kernel  # that module builds on this one
+
+    device = require_device(device, "encode_dfpwm_bytes")
     levels = np.asarray(levels, dtype=np.int32).reshape(-1)
+    if levels.size and (levels.min() < -128 or levels.max() > 127):
+        raise ValueError("DFPWM levels must lie in [-128, 127]")
     n = (len(levels) // 8) * 8
     if state is None:
         state = DfpwmState.zeros(1, device)
     if n == 0:
         return b"", state
-    out, state = dfpwm_encode(torch.tensor(levels[None, :n], device=device), state)
+    raw = torch.tensor(levels[None, :n].astype(np.int8), device=device)
+    out, state = dfpwm_encode_kernel(raw, state)
     return out[0].cpu().numpy().tobytes(), state

@@ -1,5 +1,6 @@
 """ctypes bindings for the native FLAC bitstream parser (``native/flacbits.cpp``)
-— the entry points of ``aukit_tpu.native.flacbits`` that the FLAC fleet calls.
+— the entry points of ``aukit_tpu.native.flacbits`` that the FLAC fleet calls,
+and the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with.
 
 At first use the repository's ``native/flacbits.cpp`` is compiled by g++ with
 the JAX package's loader's flags into ``aukit_tpu_torch/_build/`` (the file
@@ -87,6 +88,8 @@ def _load():
     lib.iir_scan_rows.restype = None
     lib.iir_scan_rows.argtypes = [_F64P, _F64P, _F64P, ctypes.c_double, ctypes.c_int64,
                                   ctypes.c_int64]
+    lib.dfpwm_decode_rows.restype = None
+    lib.dfpwm_decode_rows.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64, _I32P, _I32P]
     return lib
 
 
@@ -205,3 +208,17 @@ def iir_scan_rows(x: np.ndarray, alpha: float, state: np.ndarray):
     lib.iir_scan_rows(y.ctypes.data_as(_F64P), st.ctypes.data_as(_F64P),
                       fs.ctypes.data_as(_F64P), float(alpha), R, T)
     return y, fs.reshape(np.shape(state)).copy()
+
+
+def dfpwm_decode_rows(bytes_u8: np.ndarray, state: np.ndarray):
+    """Host DFPWM1a decode, bit-identical to ``codecs.dfpwm.dfpwm_decode``.
+    ``bytes_u8`` uint8[L, B], ``state`` int32[5, L] (the ``DfpwmState``
+    fields in order). Returns (int32[L, B*8] samples, new int32[5, L] state)."""
+    lib = _lib()
+    b = np.ascontiguousarray(bytes_u8, np.uint8)
+    st = np.array(state, np.int32, order="C")  # a fresh copy: updated in place
+    L, B = b.shape
+    out = np.empty((L, B * 8), np.int32)
+    lib.dfpwm_decode_rows(b.ctypes.data_as(_U8P), L, B, st.ctypes.data_as(_I32P),
+                          out.ctypes.data_as(_I32P))
+    return out, st

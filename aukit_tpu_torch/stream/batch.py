@@ -26,11 +26,12 @@ read theirs from each block header.
    per-channel chunks (the reference's chunk contract, aukit.lua:2223-2227),
    C the fleet's largest channel count; lanes with fewer channels replicate
    channel 0, the reference's speaker fallback ``chunk[i] or chunk[1]``
-   (aukit.lua:1935).
-
-Not ported yet (each raises ``NotImplementedError``): the per-lane DSP stages
-``set_filter``/``set_mono``/``normalize`` (ROADMAP.md, queue 1: "Engine DSP
-stages").
+   (aukit.lua:1935);
+ - per-lane DSP stages, the batched auplay chain at each lane's native rate
+   (auplay.lua:20-31): mono toggle -> ``normalize`` gain -> one-pole
+   lowpass/highpass (``set_filter``) with chunk-carried filter state. A group
+   with any stage set leaves the fused DFPWM kernel for decode + stages +
+   ``dsp_chain``, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -45,14 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from ..codecs.dfpwm import norm8
-from ..config import CONFIG, get_interpolation
+from ..config import CONFIG, get_interpolation, require_device
 from ..kernels.dfpwm_cuda import dfpwm_decode_dsp_kernel
+from ..kernels.fma_cuda import fma_kernel
+from ..ops.scan import linear_scan
 from ..parallel.pipeline import dsp_chain, fir_alpha
-from .batch_codecs import LaneSpec, build_decoder, geometry, init_state
+from .batch_codecs import LaneSpec, _mono, build_decoder, geometry, init_state
 
 __all__ = ["LaneSpec", "BatchStreamEngine", "BatchDfpwmDecoder", "BatchMetrics"]
-
-_DSP_STAGES = "ROADMAP.md, queue 1: 'Engine DSP stages'"
 
 
 @dataclasses.dataclass
@@ -228,6 +229,22 @@ class _GroupIO:
         self.sizes[slot] = len(data)
         self.eof[slot] = eof
 
+    def snapshot(self) -> "_GroupIO":
+        """Copy of the ingestion state: cursors and chunk references (numpy
+        arrays, torch tensors on any device, or bytes), no byte copies. The
+        normalize measuring pass stages from the copy and leaves the live
+        buffers untouched."""
+        s = _GroupIO(self.lanes, self.n)
+        s.mode = self.mode
+        s.segs = collections.deque(self.segs)
+        s.seg_off = self.seg_off
+        if self.bufs is not None:
+            s.bufs = [collections.deque(d) for d in self.bufs]
+            s.offs = list(self.offs)
+            s.sizes = self.sizes.copy()
+        s.eof = self.eof.copy()
+        return s
+
     def _take_lane(self, slot: int, need: int, pieces: list):
         """Append exactly ``need`` buffered bytes of one lane to ``pieces``
         (zero-copy memoryviews) and advance the lane's cursor."""
@@ -318,16 +335,6 @@ class _GroupIO:
         return None
 
 
-def require_device(device, who: str) -> torch.device:
-    """``device`` as a torch.device; raises when it names CUDA and no CUDA
-    device is present (no entry point carries on on the CPU by itself)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}(device='cuda'): no CUDA device is available; "
-                           "pass device='cpu' for the plain PyTorch path")
-    return device
-
-
 def _to_device(x, device: torch.device) -> torch.Tensor:
     """A fresh contiguous copy of host (numpy) or device bytes on ``device``:
     nothing the caller mutates later can race an asynchronous copy."""
@@ -354,10 +361,11 @@ class _Group:
         self.in_bytes, self.in_samples = geometry(spec)
         self.out_rate = out_rate
         self.out_samples = self.in_samples * out_rate // spec.sample_rate
-        # identity-rate DFPWM lanes run the fused decode+DSP kernel: the
-        # float stream never touches device memory. The smoothing carry is
-        # the lowpass state, so the fir state is derived, not carried.
-        self.fused = spec.codec == "dfpwm" and spec.sample_rate == out_rate
+        # identity-rate DFPWM lanes run the fused decode+DSP kernel unless a
+        # DSP stage is set: the float stream never touches device memory.
+        # The smoothing carry is the lowpass state, so the fir state is
+        # derived, not carried.
+        self.fusable = spec.codec == "dfpwm" and spec.sample_rate == out_rate
         self.alpha = fir_alpha(spec.sample_rate, out_rate)
         self.io = _GroupIO(self.lanes, self.in_bytes)
         self.fir = torch.zeros((self.lanes,) if mono else (self.lanes, self.out_ch),
@@ -366,6 +374,21 @@ class _Group:
         # lane's next chunk; gain0 == gain1 == 1 is the ungained stream
         self.gain0 = np.ones(self.lanes, np.float32)
         self.gain1 = np.ones(self.lanes, np.float32)
+        # per-lane DSP stages at the lane's native rate (auplay.lua:20-31
+        # order: mono -> normalize -> one-pole filter), host configuration:
+        #  - lp_kind: 0 none, 1 lowpass (aukit.lua:3586), 2 highpass (:3604)
+        #  - lp_a: the filter's alpha at the lane's native rate
+        #  - norm_gain: whole-file normalize multiplier (``normalize``)
+        #  - mono_sel: per-lane mono-mix toggle (mono=False engines)
+        # the filter's carried y/x live on the device; ``filt_started`` marks
+        # lanes whose recurrence has run (else y[0] = x[0] on the next chunk)
+        self.lp_kind = np.zeros(self.lanes, np.int32)
+        self.lp_a = np.zeros(self.lanes, np.float32)
+        self.norm_gain = np.ones(self.lanes, np.float32)
+        self.mono_sel = np.zeros(self.lanes, bool)
+        self.filt_y = torch.zeros_like(self.fir)
+        self.filt_x = torch.zeros_like(self.fir)
+        self.filt_started = np.zeros(self.lanes, bool)
         self.state = init_state(spec, self.lanes, device)
         self.samples_in = np.zeros(self.lanes, np.int64)  # input samples consumed
         self.samples_out = np.zeros(self.lanes, np.int64)  # output samples emitted
@@ -379,12 +402,60 @@ class _Group:
         self.spans: collections.deque[list] = collections.deque()
         self.skip = np.zeros(self.lanes, np.int64)
 
-    def _step(self, dev: torch.Tensor, ready: torch.Tensor, gain):
+    @property
+    def with_dsp(self) -> bool:
+        """Whether any lane has a DSP stage set (the JAX step's variant key)."""
+        return bool(self.lp_kind.any() or self.mono_sel.any() or (self.norm_gain != 1.0).any())
+
+    def _lanes_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)
+
+    def _mix(self, f: torch.Tensor, msel: torch.Tensor) -> torch.Tensor:
+        """The per-lane mono toggle of a per-channel block [L, C, T]: toggled
+        lanes carry their channel mean on every channel."""
+        return torch.where(msel[:, None, None], _mono(f)[:, None, :], f)
+
+    def _stages(self, f: torch.Tensor):
+        """The batched auplay chain on decoded floats [L, T] or [L, C, T]:
+        mono toggle -> normalize gain -> one-pole filter as a linear
+        recurrence (``linear_scan``), in the float operations of the JAX
+        step (aukit_tpu/stream/batch.py:511-546). Returns (y, new filter y,
+        new filter x) before masking."""
+        bl = (slice(None), None) if self.mono else (slice(None), None, None)
+        if not self.mono:
+            f = self._mix(f, self._lanes_dev(self.mono_sel))
+        f = f * self._lanes_dev(self.norm_gain)[bl]
+        kind = self._lanes_dev(self.lp_kind)
+        a = self._lanes_dev(self.lp_a)
+        # per-sample-0 quantities broadcast one axis less than f
+        wide = (lambda v: v) if self.mono else (lambda v: v[:, None])
+        started = self._lanes_dev(self.filt_started)
+        k1w, k2w, aw, stw = wide(kind == 1), wide(kind == 2), wide(a), wide(started)
+        sy, sx = self.filt_y, self.filt_x
+        x0 = f[..., 0]
+        # first-of-stream sample passes through (effects.lowpass / highpass
+        # y[0] = x[0]); later chunks chain the carried state
+        y0_lp = torch.where(stw, fma_kernel(1.0 - aw, sy, aw * x0), x0)
+        y0_hp = torch.where(stw, aw * (sy + x0 - sx), x0)
+        b0 = torch.where(k1w, y0_lp, torch.where(k2w, y0_hp, x0))
+        kindb, ab = kind[bl], a[bl]
+        # one A a lane, broadcast over the samples: the scan never reads
+        # A[..., 0] into y (the JAX step zeroes it), so it is left as it is
+        A = torch.where(kindb == 1, 1.0 - ab, torch.where(kindb == 2, ab, 0.0)).expand(f.shape)
+        B = torch.where(kindb == 1, ab * f, f)
+        if (self.lp_kind == 2).any():
+            dx = torch.cat([torch.zeros_like(x0)[..., None], torch.diff(f, dim=-1)], dim=-1)
+            B = torch.where(kindb == 2, ab * dx, B)
+        B[..., 0] = b0
+        y = linear_scan(A, B)
+        return y, y[..., -1], f[..., -1]
+
+    def _step(self, dev: torch.Tensor, ready: torch.Tensor, gain, with_dsp: bool):
         """One device step: (int8[L, out_samples] or, per channel,
         int8[L, C, out_samples]; new fir; new state). Masked lanes emit zeros
-        and keep their fir and codec state."""
+        and keep their fir, filter carry and codec state."""
         keep = ready if self.mono else ready[:, None]  # broadcasts over the fir's shape
-        if self.fused:
+        if self.fusable and not with_dsp:
             out, new_state = dfpwm_decode_dsp_kernel(dev, self.state, self.alpha,
                                                      mask=ready, gain=gain)
             new_fir = norm8(new_state.lowpass)
@@ -392,6 +463,10 @@ class _Group:
                 out, new_fir = out[:, None, :], new_fir[:, None]
         else:
             f, new_state = self.decode(dev, self.state)  # [L, T] or [L, C, T]
+            if with_dsp:
+                f, new_y, new_x = self._stages(f)
+                self.filt_y = torch.where(keep, new_y, self.filt_y)
+                self.filt_x = torch.where(keep, new_x, self.filt_x)
             if gain is not None and not self.mono:
                 gain = (gain[0][:, None], gain[1][:, None])
             out, new_fir = dsp_chain(f, self.spec.sample_rate, self.out_rate,
@@ -416,11 +491,39 @@ class _Group:
             gs = (self.gain1 - self.gain0) / np.float32(self.out_samples)
             gain = (torch.tensor(self.gain0, device=self.device),
                     torch.tensor(gs, device=self.device))
-        out, self.fir, self.state = self._step(dev, ready_dev, gain)
+        with_dsp = self.with_dsp
+        out, self.fir, self.state = self._step(dev, ready_dev, gain, with_dsp)
         if gain is not None:
             self.gain0 = np.where(ready, self.gain1, self.gain0)
+        if with_dsp:
+            # only filtered lanes have warmed their recurrence: a lane that
+            # merely rode a DSP-active step (normalize-only, say) still gets
+            # y[0] = x[0] when a filter is enabled on it later
+            self.filt_started |= ready & (self.lp_kind != 0)
         self.samples_in += np.where(ready, (consumed * self.in_samples) // self.in_bytes, 0)
         return out, ready, underrun
+
+    def measure_peaks(self) -> np.ndarray:
+        """The normalize measuring pass: decode a snapshot of the buffered
+        bytes from a fresh zero codec state, apply the per-lane mono toggle,
+        and reduce each ready lane's peak |x| on the device. Returns
+        float64[L] peaks; the live buffers and state are untouched."""
+        io = self.io.snapshot()
+        state = init_state(self.spec, self.lanes, self.device)
+        msel = self._lanes_dev(self.mono_sel)
+        peaks = torch.zeros(self.lanes, dtype=torch.float32, device=self.device)
+        while (st := io.stage()) is not None:
+            staged, ready, _consumed, _underrun = st
+            ready_dev = self._lanes_dev(ready)
+            f, new_state = self.decode(_to_device(staged, self.device), state)
+            if not self.mono:
+                f = self._mix(f, msel)
+                m = f.abs().amax(dim=(-2, -1))
+            else:
+                m = f.abs().amax(dim=-1)
+            peaks = torch.maximum(peaks, torch.where(ready_dev, m, 0.0))
+            state = new_state.where(ready_dev, state)
+        return peaks.cpu().numpy().astype(np.float64)
 
     # -- mixed-engine FIFO (device-resident) --------------------------------------
     def fifo_push(self, out_dev: torch.Tensor, ready: np.ndarray):
@@ -565,14 +668,56 @@ class BatchStreamEngine:
         gi, slot = self._lane_map[lane]
         return float(self.groups[gi].gain1[slot])
 
+    # -- per-lane DSP stages (the batched auplay chain) -----------------------
     def set_filter(self, lane: int, kind: str | None, cutoff: float = 0.0):
-        raise NotImplementedError(f"set_filter is not ported yet ({_DSP_STAGES})")
+        """Per-lane one-pole filter at the lane's native rate, applied to the
+        decoded float stream before the playback resample. The stage order
+        is auplay's (mono -> normalize -> filter, auplay.lua:20-31), but
+        auplay filters after its 48 kHz resample: here ``cutoff`` is read
+        against the lane's native rate, as solo ``effects.lowpass`` at that
+        rate would. ``kind`` is "lowpass" (aukit.lua:3586) or "highpass"
+        (aukit.lua:3604); None clears the filter. A (re)configured filter
+        starts a fresh recurrence: its first sample passes through."""
+        gi, slot = self._lane_map[lane]
+        g = self.groups[gi]
+        rate = g.spec.sample_rate
+        if kind is None:
+            g.lp_kind[slot], g.lp_a[slot] = 0, 0.0
+        elif kind == "lowpass":
+            g.lp_kind[slot] = 1
+            g.lp_a[slot] = 1.0 - np.exp(-(cutoff / rate) * 2.0 * np.pi)
+        elif kind == "highpass":
+            g.lp_kind[slot] = 2
+            g.lp_a[slot] = 1.0 / (2.0 * np.pi * (cutoff / rate) + 1.0)
+        else:
+            raise ValueError(f"unknown filter kind {kind!r}")
+        g.filt_started[slot] = False
+        g.filt_y[slot] = 0.0
+        g.filt_x[slot] = 0.0
 
     def set_mono(self, lane: int, on: bool = True):
-        raise NotImplementedError(f"set_mono is not ported yet ({_DSP_STAGES})")
+        """Per-lane mono-mix toggle for ``mono=False`` engines: the lane's
+        decoded channels are replaced by their mean on every channel (the
+        batched Audio:mono, aukit.lua:685-687). Mono engines' windows are
+        already mixed."""
+        gi, slot = self._lane_map[lane]
+        self.groups[gi].mono_sel[slot] = bool(on)
 
     def normalize(self, peak: float = 0.8):
-        raise NotImplementedError(f"normalize is not ported yet ({_DSP_STAGES})")
+        """Whole-file per-lane normalize (the batched effects.normalize(peak),
+        aukit.lua:3431; auplay's normalize(0.8) stage): a measuring pass
+        decodes a snapshot of the buffered bytes, takes each lane's peak after
+        its mono toggle, and sets the lane's gain to ``peak / lane_peak``.
+        Buffers, codec state and metrics are untouched. Requires every lane
+        fed to EOF and no step taken yet."""
+        for g in self.groups:
+            if not g.io.eof.all():
+                raise ValueError("normalize requires every lane fed to EOF")
+            if g.fill or g.samples_in.any():
+                raise ValueError("normalize must run before stepping")
+        for g in self.groups:
+            peaks = g.measure_peaks()
+            g.norm_gain[:] = np.where(peaks > 0, peak / peaks, 1.0).astype(np.float32)
 
     @property
     def active(self) -> np.ndarray:
@@ -678,38 +823,51 @@ class BatchStreamEngine:
             "eof": bool(g.io.eof[slot]),
             "codec_state": [np.int32(leaf[slot].item()) for leaf in g.state.leaves()],
             # mono: a float; mono=False: an f32[C] row
-            "fir_state": float(g.fir[slot]) if self.mono else g.fir[slot].cpu().numpy().copy(),
+            "fir_state": self._row(g.fir[slot]),
             "volume": (float(g.gain0[slot]), float(g.gain1[slot])),
-            # the per-lane DSP stages are not ported: always their defaults
-            "dsp": {"kind": 0, "alpha": 0.0, "norm_gain": 1.0, "mono": False,
-                    "started": False, "y": self._dsp_zero(g), "x": self._dsp_zero(g)},
+            "dsp": {
+                "kind": int(g.lp_kind[slot]), "alpha": float(g.lp_a[slot]),
+                "norm_gain": float(g.norm_gain[slot]),
+                "mono": bool(g.mono_sel[slot]),
+                "started": bool(g.filt_started[slot]),
+                "y": self._row(g.filt_y[slot]), "x": self._row(g.filt_x[slot]),
+            },
         }
 
-    def _dsp_zero(self, g: _Group):
-        return 0.0 if self.mono else np.zeros(g.out_ch, np.float32)
+    def _row(self, v: torch.Tensor):
+        """A lane's row of a carried tensor: a float (mono) or f32[C]."""
+        return float(v) if self.mono else v.cpu().numpy().copy()
 
     def restore(self, lane: int, ckpt: dict):
         """Restore one lane from a checkpoint of this engine or of the JAX
         engine (``aukit_tpu.stream.batch``). A live restore abandons the
         lane's undelivered group-FIFO columns: they belong to the old
         timeline."""
-        dsp = ckpt.get("dsp") or {}
-        if dsp.get("kind", 0) or dsp.get("norm_gain", 1.0) != 1.0 or dsp.get("mono", False):
-            raise NotImplementedError(
-                f"checkpoint carries per-lane DSP stages, not ported yet ({_DSP_STAGES})")
         gi, slot = self._lane_map[lane]
         g = self.groups[gi]
         g.skip[slot] = g.fill
         g.samples_in[slot] = ckpt["byte_offset"] * g.in_samples // g.in_bytes
         g.io.replace_lane(slot, ckpt["pending"], ckpt["eof"])
-        # the group owns its state and fir tensors (every step makes new
-        # ones), so one lane's row is written in place; a stateless codec's
-        # state has no leaves
+        # the group owns its state, fir and filter tensors (every step makes
+        # new ones), so one lane's row is written in place; a stateless
+        # codec's state has no leaves
         cs = ckpt.get("codec_state")  # None/absent -> zero the lane's state
         for i, leaf in enumerate(g.state.leaves()):
             leaf[slot] = int(cs[i]) if cs is not None else 0
-        g.fir[slot] = torch.tensor(np.asarray(ckpt.get("fir_state", 0.0), np.float32))
+        g.fir[slot] = self._lane_row(ckpt.get("fir_state", 0.0))
         g.gain0[slot], g.gain1[slot] = ckpt.get("volume", (1.0, 1.0))
+        dsp = ckpt.get("dsp") or {}
+        g.lp_kind[slot] = dsp.get("kind", 0)
+        g.lp_a[slot] = dsp.get("alpha", 0.0)
+        g.norm_gain[slot] = dsp.get("norm_gain", 1.0)
+        g.mono_sel[slot] = dsp.get("mono", False)
+        g.filt_started[slot] = dsp.get("started", False)
+        g.filt_y[slot] = self._lane_row(dsp.get("y", 0.0))
+        g.filt_x[slot] = self._lane_row(dsp.get("x", 0.0))
+
+    @staticmethod
+    def _lane_row(v) -> torch.Tensor:
+        return torch.tensor(np.asarray(v, np.float32))
 
     def reset_lane(self, lane: int):
         """Reuse a finished lane for a new stream."""

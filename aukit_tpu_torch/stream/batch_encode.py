@@ -52,7 +52,8 @@ from ..codecs.dfpwm import DfpwmState
 from ..kernels.dfpwm_cuda import dfpwm_encode_kernel
 from ..kernels.fma_cuda import fma_kernel
 from ..ops.pcmcode import denormalize_pcm
-from .batch import BatchMetrics, _GroupIO, _to_device, require_device
+from ..config import require_device
+from .batch import BatchMetrics, _GroupIO, _to_device
 from .batch_codecs import NoState
 
 __all__ = ["BatchDfpwmEncoder", "BatchEncodeEngine", "EncodeSpec", "ENCODE_CODECS",
@@ -555,9 +556,9 @@ def transcode_fleet(source, encoder: BatchEncodeEngine, max_steps: int = 1 << 20
     (auconvert's decode -> write pipeline, auconvert.lua:333-419): every
     decode window feeds ``encode_windows`` without leaving device memory;
     encoded bytes are fetched once per step. ``source`` is a
-    ``BatchStreamEngine`` (int8 windows) or a ``FlacFleet``, whose float
-    int8-range windows quantise with the truncating int8 cast of the JAX
-    package's ``Fleet`` facade (``aukit_tpu/stream/fleet.py:84``). Returns
+    ``BatchStreamEngine`` or a ``Fleet`` (int8 windows) or a ``FlacFleet``,
+    whose float int8-range windows quantise with the truncating int8 cast
+    of the ``Fleet`` facade (``stream/fleet.py`` ``_dev_merge``). Returns
     per-lane ``bytes``. Final windows are zero-padded to the one-second
     window grid by the decode engines, so outputs may carry encoded trailing
     silence up to one window (the solo writers stop at the exact sample). A

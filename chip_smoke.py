@@ -7,12 +7,13 @@ Run from the repository root on a machine with the card and the CUDA toolkit:
 It builds the CUDA kernels from aukit_tpu_torch/csrc and the native FLAC
 parser, checks the kernels against golden vectors and against their plain
 PyTorch versions on the card (also at the main paths' own shapes and bytes),
-checks the CUDA engines against the CPU engines, drives the four main paths
-at full width (the batched DFPWM -> 48 kHz int8 engine, a 32768-lane
-block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, a 2048-lane
-drip-fed FLAC fleet, and a 24576-lane device-to-device transcode of mono and
-stereo PCM16 into DFPWM and PCM16), and times the kernels, each beside its
-bound on the card. Each phase prints one line; any failure raises, so the
+checks the CUDA engines and the Fleet facade against the CPU ones, drives
+the six main paths at full width (the batched DFPWM -> 48 kHz int8 engine, a
+32768-lane block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, a
+2048-lane drip-fed FLAC fleet, a 24576-lane device-to-device transcode of
+mono and stereo PCM16 into DFPWM and PCM16, the auplay DSP chain on 16384
+PCM16 lanes, and a 3072-station Fleet of FLAC, DFPWM and IMA-in-WAV), and
+times the kernels, each beside its bound on the card. Each phase prints one line; any failure raises, so the
 exit code is non-zero and the closing result line is not printed. It exits
 non-zero at once without a CUDA device.
 Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
@@ -24,6 +25,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -32,7 +34,8 @@ import numpy as np
 import torch
 
 from aukit_tpu_torch import (BatchDfpwmDecoder, BatchEncodeEngine, BatchStreamEngine, EncodeSpec,
-                             FlacFleet, LaneSpec, encode_windows_many, kernels, transcode_fleet)
+                             FlacFleet, Fleet, LaneSpec, encode_windows_many, kernels,
+                             transcode_fleet)
 from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.containers.wav import pcm_wav_header
@@ -44,7 +47,9 @@ from aukit_tpu_torch.kernels import fma_cuda as kf
 from aukit_tpu_torch.kernels import iir_cuda as kh
 from aukit_tpu_torch.kernels import qoa_cuda as kq
 from aukit_tpu_torch.native import flacbits
+from aukit_tpu_torch.ops import scan as oscan
 from aukit_tpu_torch.parallel.pipeline import fir_alpha
+from aukit_tpu_torch.stream import batch as sb
 from aukit_tpu_torch.stream import batch_codecs as bc
 from aukit_tpu_torch.stream import flac_fleet as ff
 from aukit_tpu_torch.stream.batch_encode import ENCODE_CODECS
@@ -140,6 +145,20 @@ def random_state(rng, lanes: int) -> DfpwmState:
               rng.integers(0, 2, lanes), rng.integers(-128, 128, lanes),
               rng.integers(-128, 128, lanes))
     return DfpwmState(*(torch.tensor(a.astype(np.int32), device="cuda") for a in leaves))
+
+
+def deep_equal(a, b) -> bool:
+    """Checkpoint-shaped values (dicts, lists, tuples, numpy arrays, bytes,
+    scalars) equal, arrays bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            deep_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(deep_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, (np.ndarray, np.generic)) or isinstance(b, (np.ndarray, np.generic)):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
 
 
 def same(a, b) -> tuple[bool, int]:
@@ -1400,12 +1419,6 @@ def flac_steps_diff(a, b) -> float:
     return err
 
 
-def checkpoints_equal(a, b) -> bool:
-    return all(x.keys() == y.keys() and all(
-        np.array_equal(np.asarray(x[k], dtype=object), np.asarray(y[k], dtype=object))
-        for k in x) for x, y in zip(a, b, strict=True))
-
-
 def phase_flac_kernel_vs_plain() -> dict:
     """Kernels (g) and (h) against their plain versions on the same CUDA
     tensors, max |error| 0: small ragged shapes (every tap bucket K, shifts
@@ -1521,10 +1534,10 @@ def phase_flac_engines(fx) -> None:
         launched = (kg.lpc_restore_kernel.launches - counts[0],
                     kh.iir_zero_kernel.launches - counts[1])
         say("flac_engine_cuda_vs_cpu", route=route, mode=mode, mono=mono, lanes=len(lanes),
-            steps=len(got), max_abs_err=err, checkpoints_equal=checkpoints_equal(ck_got, ck_want),
+            steps=len(got), max_abs_err=err, checkpoints_equal=deep_equal(ck_got, ck_want),
             max_abs_err_vs_host=err_host, lpc_launches=launched[0], iir_launches=launched[1],
             cuda_seconds=round(t1 - t0, 3), cpu_seconds=round(t2 - t1, 3))
-        check(err == 0 and checkpoints_equal(ck_got, ck_want),
+        check(err == 0 and deep_equal(ck_got, ck_want),
               f"{route}/{mode}: CUDA fleet == CPU fleet")
         check(err_host <= 5e-3, f"{route}/{mode}: within 5e-3 of the host route")
         check(launched[1] > 0 and (launched[0] > 0) == kw["device_restore"],
@@ -2061,7 +2074,7 @@ def phase_encode_engines() -> None:
         check(len(got) == len(want) and all(
             np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w, strict=True)),
             f"encode fleet ({channels} ch): CUDA engine == CPU engine")
-        check(checkpoints_equal(ck_got, ck_want), f"encode fleet ({channels} ch): checkpoints equal")
+        check(deep_equal(ck_got, ck_want), f"encode fleet ({channels} ch): checkpoints equal")
         say("encode_engine_cuda_vs_cpu", channels=channels, lanes=len(specs), steps=len(got),
             codecs=json.dumps(ENCODE_CODECS), equal=True)
 
@@ -2127,6 +2140,590 @@ def phase_encode_time(plain_ms: float) -> dict:
     return {"dfpwm_encode": row}
 
 
+# -- the engine's DSP stages (the batched auplay chain) and the Fleet facade ----------
+
+AUPLAY_LANES = 16384  # bench.py:510-541's config 6b (4096 lanes on its TPU run) at 4x
+AUPLAY_SECONDS = 3
+ENGINE_DSP_PER_SPEC = 8  # lanes of each of the six specs CUDA and CPU both decode
+FLEET_STATIONS = 3072  # bench.py:600-640's station mix (48 on its TPU run) at 64x
+FLEET_SECONDS = 10
+FLEET_CHECK_STATIONS = 48
+
+
+def dsp_counts() -> dict:
+    return {"dfpwm_decode": kc.dfpwm_decode_kernel.launches,
+            "dfpwm_decode_dsp": kc.dfpwm_decode_dsp_kernel.launches,
+            "ima_decode": ka.ima_decode_kernel.launches,
+            "msadpcm_decode": ka.msadpcm_decode_kernel.launches,
+            "qoa_lms": kq.qoa_lms_kernel.launches, "lpc_restore": kg.lpc_restore_kernel.launches,
+            "iir_zero": kh.iir_zero_kernel.launches, "fma": kf.fma_kernel.launches}
+
+
+def plain_calls() -> int:
+    return sum(fn.calls for fn in kernels.PLAIN)
+
+
+def steps_equal(a, b) -> bool:
+    """Two runs' [(windows, mask, positions)] lists are equal."""
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])
+        for x, y in zip(a, b))
+
+
+def phase_engine_dsp() -> None:
+    """The auplay chain on a mono=False engine at a small width, CUDA against
+    CPU (tests/torch_kernel_cases.py's ``engine_dsp_fleet``: DFPWM at 48 and
+    32 kHz, IMA and MS ADPCM at 22.05 kHz, stereo QOA at 44.1 kHz with the
+    mono toggle on half its lanes, PCM16; lowpass and highpass lanes,
+    normalize(0.8), a lowpass reconfigured mid-stream, a filtered lane
+    checkpointed and restored): windows, masks, positions and checkpoints
+    (carried filter y/x included) bit-equal. Kernels (a), (d), (e), (f) and
+    the FMA launch on the CUDA run, the fused (b) does not (its groups carry
+    stages), and no plain version is called there."""
+    cases = load_test_module("torch_kernel_cases")
+    specs, feeds = cases.engine_dsp_fleet(np.random.default_rng(31), ENGINE_DSP_PER_SPEC, 1.5)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        kernels.reset_counts()
+        eng = BatchStreamEngine([LaneSpec(*s) for s in specs], device=dev, mono=False)
+        runs.append(cases.drive_engine_dsp(eng, specs, feeds))
+        if dev == "cuda":
+            counts, plain = dsp_counts(), plain_calls()
+    (steps_c, cks_c), (steps_p, cks_p) = runs
+    check(steps_equal(steps_c, steps_p), "engine_dsp: CUDA windows/masks/positions == CPU")
+    check(deep_equal(cks_c, cks_p), "engine_dsp: CUDA checkpoints (filter carries too) == CPU")
+    ran = ("dfpwm_decode", "ima_decode", "msadpcm_decode", "qoa_lms", "fma")
+    say("engine_dsp", lanes=len(specs), windows=len(steps_c), equal=True,
+        launches=json.dumps(counts), plain_calls=plain)
+    check(all(counts[k] > 0 for k in ran) and counts["dfpwm_decode_dsp"] == 0,
+          f"engine_dsp: kernels (a), (d), (e), (f), FMA ran and (b) did not ({counts})")
+    check(plain == 0, "engine_dsp: no plain version on the CUDA path")
+
+
+def auplay_bytes() -> np.ndarray:
+    """bench.py:514-515's feed at AUPLAY_LANES: uniform int16 noise in
+    +-8192, 3 s a lane (64 distinct rows repeated), as uint8[L, 288000]."""
+    rng = np.random.default_rng(41)
+    rows = rng.integers(-(1 << 13), 1 << 13, (64, 48000 * AUPLAY_SECONDS)).astype("<i2")
+    return np.ascontiguousarray(rows.view(np.uint8)[np.arange(AUPLAY_LANES) % 64])
+
+
+def auplay_engine(feed, device="cuda"):
+    """bench.py:518-521: a windowed pcm16 engine, lowpass(12 kHz) on every lane."""
+    lanes = feed.shape[0]
+    eng = BatchStreamEngine([LaneSpec("pcm16", 48000)] * lanes, windowed=True, device=device)
+    for lane in range(lanes):
+        eng.set_filter(lane, "lowpass", 12000)
+    eng.feed_array(feed)
+    return eng
+
+
+def run_auplay(feed):
+    """normalize(0.8) (its measuring pass) and every step, timed together
+    -> (seconds, windows, first window, peak device bytes)."""
+    eng = auplay_engine(feed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_time()
+    eng.normalize(0.8)
+    first, windows = None, 0
+    while (r := eng.step()) is not None:
+        check(tuple(r[0].shape) == (AUPLAY_LANES, 48000) and bool(r[1].all()),
+              "auplay window shape and mask")
+        first = r[0] if first is None else first
+        windows += 1
+    return sync_time() - t0, windows, first, torch.cuda.max_memory_allocated()
+
+
+def auplay_fma_vs_plain(host: np.ndarray) -> float:
+    """The FMA kernel at the auplay step's own shapes, against ``fma_ref``:
+    on a device-fed engine's second step (filter carries warm), the per-lane
+    [L] launch of the filter's first sample in ``_stages`` is held to
+    ``fma_ref`` on the same operands, and the step's (A, B) are scanned
+    again by ``linear_scan`` twice, once through the kernel (29 launches on
+    stride-2 views from [L, 24000] down) and once with ``fma_ref`` in its
+    place. Both bit-equal; returns the largest difference (0)."""
+    eng = auplay_engine(torch.tensor(host, device="cuda"))
+    eng.normalize(0.8)
+    eng.step()
+    caught, errs = [], []
+
+    def fma_checked(x, y, z):
+        out = kf.fma_kernel(x, y, z)
+        ref = kf.fma_ref(x, y, z)
+        errs.append(0.0 if torch.equal(out, ref) else float((out - ref).abs().max()))
+        return out
+
+    def scan_caught(A, B):
+        caught.append((A, B))
+        return oscan.linear_scan(A, B)
+
+    patched = (sb.fma_kernel, sb.linear_scan)
+    sb.fma_kernel, sb.linear_scan = fma_checked, scan_caught
+    try:
+        eng.step()
+    finally:
+        sb.fma_kernel, sb.linear_scan = patched
+    del eng
+    check(len(caught) == 1 and len(errs) == 1, "auplay step: one scan, one first-sample FMA")
+    A, B = caught[0]
+    check(tuple(B.shape) == (AUPLAY_LANES, 48000) and A.stride(-1) == 0,
+          "auplay scan operands: B [L, 48000], A broadcast over the samples")
+    launches = kf.fma_kernel.launches
+    y = oscan.linear_scan(A, B)
+    levels = kf.fma_kernel.launches - launches
+    oscan.fma_kernel = kf.fma_ref
+    try:
+        y_ref = oscan.linear_scan(A, B)
+    finally:
+        oscan.fma_kernel = kf.fma_kernel
+    scan_err = 0.0 if torch.equal(y, y_ref) else float((y - y_ref).abs().max())
+    say("kernel_vs_plain_main_shape", kernel="fma", case="auplay_scan", lanes=B.shape[0],
+        samples=B.shape[1], scan_launches=levels, scan_equal=scan_err == 0,
+        first_sample_lanes=B.shape[0], first_sample_equal=errs[0] == 0)
+    n, expected = B.shape[-1], 0
+    while n >= 2:  # a level's pair combine, and its even combine unless empty
+        expected, n = expected + 1 + (n >= 3), n // 2
+    check(scan_err == 0 and levels == expected, "linear_scan through the FMA kernel == through "
+          f"fma_ref at the auplay step's [16384, 48000] ({levels} of {expected} launches)")
+    check(errs[0] == 0, "the auplay step's first-sample FMA [L] == fma_ref")
+    del A, B, y, y_ref, caught
+    torch.cuda.empty_cache()
+    return max(scan_err, errs[0])
+
+
+def phase_auplay_main_path() -> tuple[dict, float]:
+    """bench.py:510-541's config 6b at AUPLAY_LANES pcm16 lanes, 48 kHz, 3 s a
+    lane, lowpass(12 kHz) on every lane, normalize(0.8) with its measuring
+    pass inside the timed window, one-second windows: fed from host memory
+    (4.7 GB of numpy bytes), then the same bytes as a CUDA tensor. Then
+    16384 DFPWM lanes at 48 kHz with a lowpass, device-fed: the identity
+    rate with a stage set, kernel (a) instead of the fused (b). Launch
+    counts are zeroed before each run and read after; the first window of 8
+    lanes of each is held against the CPU engine."""
+    host = auplay_bytes()
+    out = {}
+    for fed in ("host", "device"):
+        feed = host if fed == "host" else torch.tensor(host, device="cuda")
+        kernels.reset_counts()
+        dt, windows, first, peak = run_auplay(feed)
+        counts, plain = dsp_counts(), plain_calls()
+        check(windows == AUPLAY_SECONDS and counts["fma"] > 0 and plain == 0,
+              f"auplay {fed}-fed: 3 windows, FMA launched, no plain version ({counts})")
+        say("main_path", case="auplay", fed=fed, lanes=AUPLAY_LANES,
+            seconds_per_lane=AUPLAY_SECONDS, windows=windows, seconds=round(dt, 4),
+            realtime_factor=round(AUPLAY_LANES * AUPLAY_SECONDS / dt, 1),
+            max_memory_allocated_gb=round(peak / 1e9, 3), launches=json.dumps(counts))
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
+        del feed
+        torch.cuda.empty_cache()
+    cpu = auplay_engine(host[:8], device="cpu")
+    cpu.normalize(0.8)
+    check(torch.equal(first[:8].cpu(), cpu.step()[0]), "auplay first window == CPU engine, 8 lanes")
+    check(bool(first.abs().amax(dim=1).min() > 40), "auplay windows carry normalized audio")
+    del first
+    torch.cuda.empty_cache()
+    fma_err = auplay_fma_vs_plain(host)
+    del host
+
+    # the identity-rate DFPWM path with a stage set
+    rng = np.random.default_rng(42)
+    dbytes = rng.integers(0, 256, (AUPLAY_LANES, 6000 * AUPLAY_SECONDS), dtype=np.uint8)
+    dev = torch.tensor(dbytes, device="cuda")
+    kernels.reset_counts()
+    eng = BatchDfpwmDecoder(AUPLAY_LANES, 48000, chunk_bytes=6000, device="cuda")
+    for lane in range(AUPLAY_LANES):
+        eng.set_filter(lane, "lowpass", 12000)
+    eng.feed_array(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_time()
+    first, steps = None, 0
+    while (r := eng.step()) is not None:
+        first = r[0] if first is None else first
+        steps += 1
+    dt = sync_time() - t0
+    counts, plain = dsp_counts(), plain_calls()
+    say("main_path", case="dfpwm_lowpass_48k", fed="device", lanes=AUPLAY_LANES, steps=steps,
+        seconds=round(dt, 4), realtime_factor=round(AUPLAY_LANES * steps / dt, 1),
+        max_memory_allocated_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        launches=json.dumps(counts))
+    check(steps == AUPLAY_SECONDS and counts["dfpwm_decode"] == steps and counts["fma"] > 0
+          and counts["dfpwm_decode_dsp"] == 0 and plain == 0,
+          f"dfpwm lowpass: kernel (a) each step, FMA, not (b), no plain version ({counts})")
+    for k, v in counts.items():
+        out[k] = out.get(k, 0) + v
+    cpu = BatchDfpwmDecoder(8, 48000, chunk_bytes=6000, device="cpu")
+    for lane in range(8):
+        cpu.set_filter(lane, "lowpass", 12000)
+    cpu.feed_array(dbytes[:8, :6000])
+    check(torch.equal(first[:8].cpu(), cpu.step()[0]), "dfpwm lowpass first window == CPU, 8 lanes")
+    del eng, dev, first
+    torch.cuda.empty_cache()
+    return out, fma_err
+
+
+def event_wrap(fn, spans: list):
+    """``fn`` with CUDA events recorded around each call into ``spans``."""
+    def wrapped(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn(*a, **k)
+        end.record()
+        spans.append((start, end))
+        return r
+    return wrapped
+
+
+def events_ms(spans) -> float:
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans)
+
+
+def phase_auplay_step_breakdown() -> None:
+    """Where one full-width auplay step goes (normalize done before): the
+    step fed from host memory and from the card; on one device-fed step, by
+    CUDA events, the device time of the filter scan (``linear_scan``), of
+    the FMA launches inside it, and of ``dsp_chain`` (resample-free FIR
+    through the FMA kernel, int8 quantize); and under torch.profiler over
+    two host-fed steps, the host staging (``_to_device``: the fed column
+    view's contiguous host copy and its pageable copy to the card), the device
+    time of the FMA kernel, of the host->device copies and of the other
+    torch ops, and the device's busy share of the wall time."""
+    host = auplay_bytes()
+
+    def engine(feed):
+        eng = auplay_engine(feed)
+        eng.normalize(0.8)
+        return eng
+
+    def step_ms(eng) -> float:
+        t0 = sync_time()
+        eng.step()
+        return (sync_time() - t0) * 1e3
+
+    dev_eng = engine(torch.tensor(host, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    dev_step = step_ms(dev_eng)
+    peak = torch.cuda.max_memory_allocated()
+    spans = {"scan": [], "scan_fma": [], "dsp_chain": []}
+    patched = (sb.linear_scan, oscan.fma_kernel, sb.dsp_chain)
+    sb.linear_scan = event_wrap(sb.linear_scan, spans["scan"])
+    oscan.fma_kernel = event_wrap(oscan.fma_kernel, spans["scan_fma"])
+    sb.dsp_chain = event_wrap(sb.dsp_chain, spans["dsp_chain"])
+    try:
+        t0 = sync_time()
+        dev_eng.step()
+        instrumented = (sync_time() - t0) * 1e3
+    finally:
+        sb.linear_scan, oscan.fma_kernel, sb.dsp_chain = patched
+    parts = {k: events_ms(v) for k, v in spans.items()}
+    del dev_eng
+    torch.cuda.empty_cache()
+
+    host_eng = engine(host)
+    host_step = step_ms(host_eng)
+    stage, to_device = [], sb._to_device
+
+    def timed_to_device(x, device):
+        t0 = time.perf_counter()
+        r = to_device(x, device)
+        stage.append(time.perf_counter() - t0)
+        return r
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sb._to_device = timed_to_device
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = sync_time()
+            host_eng.step()
+            host_eng.step()
+            wall = (sync_time() - t0) * 1e3
+    finally:
+        sb._to_device = to_device
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {"fma": "fma_kernel", "htod": "Memcpy HtoD"}
+    prof_spans = {k: [(e.time_range.start, e.time_range.end) for e in dev if v in e.name]
+                  for k, v in names.items()}
+    prof_spans["other"] = [(e.time_range.start, e.time_range.end) for e in dev
+                           if not any(v in e.name for v in names.values())]
+    check(prof_spans["fma"], "the auplay step's profile shows the FMA kernel")
+    everything = [iv for ivs in prof_spans.values() for iv in ivs]
+    kernels_only = [iv for k, ivs in prof_spans.items() if k != "htod" for iv in ivs]
+    say("step_breakdown", case="auplay", lanes=AUPLAY_LANES,
+        host_fed_step_ms=round(host_step, 3), device_fed_step_ms=round(dev_step, 3),
+        device_fed_step_max_memory_allocated_gb=round(peak / 1e9, 3),
+        instrumented_step_ms=round(instrumented, 3), scan_ms=round(parts["scan"], 3),
+        scan_fma_ms=round(parts["scan_fma"], 3), scan_fma_launches=len(spans["scan_fma"]),
+        scan_other_ms=round(parts["scan"] - parts["scan_fma"], 3),
+        dsp_chain_ms=round(parts["dsp_chain"], 3),
+        host_staging_ms_per_step=round(sum(stage) / 2 * 1e3, 3), profiled_steps=2,
+        profiled_wall_ms=round(wall, 3), device_events=len(dev),
+        **{f"{k}_ms_per_step": round(busy_ms(v) / 2, 3) for k, v in prof_spans.items()},
+        busy_kernels=round(busy_ms(kernels_only) / wall, 4),
+        busy_with_copies=round(busy_ms(everything) / wall, 4))
+    del host_eng, host
+    torch.cuda.empty_cache()
+
+
+def ima_wav(rng, seconds: int, rate: int = 16000, ba: int = 256) -> bytes:
+    """bench.py:606-618's IMA-in-WAV station: random nibbles, predictor 0
+    and a valid step index in every block header."""
+    spb = (ba - 4) * 2
+    kblk = -(-seconds * rate // spb)
+    payload = rng.integers(0, 256, kblk * ba, dtype=np.uint8)
+    payload[::ba] = 0
+    payload[1::ba] = 0
+    payload[2::ba] = rng.integers(0, 89, kblk)
+    pay = payload.tobytes()
+    fmt = struct.pack("<HHIIHHHH", 0x11, 1, rate, rate * ba // spb, ba, 4, 2, spb)
+    return (b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(pay)) + b"WAVE"
+            + b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data"
+            + struct.pack("<I", len(pay)) + pay)
+
+
+def fleet_flac_stream(fx, rng, seconds: int) -> bytes:
+    """bench.py:620-621's FLAC station: 48 kHz mono, block 4096, config 7's
+    LPC-8 frame (bench_subframe), ``seconds`` long."""
+    frame = fx.flac_frame([bench_subframe(rng, FLAC_N)], FLAC_N, 0, 16)
+    nfr = seconds * 48000 // FLAC_N
+    return fx.flac_stream_header(48000, 1, 16, nfr * FLAC_N) + frame * nfr
+
+
+def fleet_check_sources(fx, rng) -> list:
+    """FLEET_CHECK_STATIONS stations of six kinds in turn, ~2 s each: FLAC
+    (numbered LPC-8 frames, so a seek lands mid-stream), raw DFPWM,
+    IMA-in-WAV, stereo QOA, MDFPWM, PCM16-in-WAV (22.05 kHz)."""
+    t = np.arange(2 * 22050)
+    nfr = 2 * 48000 // FLAC_N
+    flac = fx.flac_stream_header(48000, 1, 16, nfr * FLAC_N) + b"".join(
+        fx.flac_frame([bench_subframe(rng, FLAC_N)], FLAC_N, 0, 16, frame_number=k)
+        for k in range(nfr))
+    out = []
+    for i in range(FLEET_CHECK_STATIONS):
+        kind = i % 6
+        if kind == 0:
+            out.append(flac)
+        elif kind == 1:
+            out.append((LaneSpec("dfpwm", 48000), rng.integers(0, 256, 12000, np.uint8).tobytes()))
+        elif kind == 2:
+            out.append(ima_wav(rng, 2))
+        elif kind == 3:
+            out.append(fx.qoa_stream(rng, 2, 44100, [5120] * 17))
+        elif kind == 4:
+            body = rng.integers(0, 256, (2, 12000 + 700), np.uint8)
+            out.append(fx.mdfpwm_file(body[0].tobytes(), body[1].tobytes(), 2 * (12000 + 700)))
+        else:
+            sig = (np.sin(t / (3.0 + i)) * 12000 + rng.normal(0, 500, len(t))).astype(np.int16)
+            out.append(fx.wav_pcm(sig[None], 22050, 16))
+    return out
+
+
+def drive_fleet_check(fleet) -> tuple[list, list, list]:
+    """The [fleet] scenario: per-station filters and mono toggles, one window,
+    seeks on a DFPWM, an MDFPWM, a FLAC, a WAV and a QOA station, a
+    reset_station of an IMA station mid-play, a window, a checkpoint ->
+    restore of a filtered DFPWM station and of a FLAC station, then to the
+    end -> (steps, seek landings, the final checkpoint of every station)."""
+    for i, st in enumerate(fleet.stations):
+        if st.kind == "flac":
+            continue
+        if i % 4 == 1:
+            fleet.set_filter(i, "lowpass", 6000)
+        elif i % 4 == 2:
+            fleet.set_filter(i, "highpass", 150)
+        if i % 6 == 3 and i % 12 == 3:
+            fleet.set_mono(i, True)
+    steps = []
+
+    def step():
+        r = fleet.step()
+        if r is not None:
+            steps.append((r[0].cpu().numpy(), r[1].copy(), r[2].copy()))
+
+    step()
+    landings = [fleet.seek(i, s) for i, s in ((1, 0.5), (4, 0.75), (0, 1.0), (5, 0.5), (3, 0.5))]
+    fleet.reset_station(2)  # replay the IMA station's retained source, mid-play
+    step()
+    for i in (13, 6):  # a lowpass DFPWM station (48 kHz: a window boundary), a FLAC one
+        fleet.restore(i, fleet.checkpoint(i))
+    for _ in range(10_000):
+        if fleet.done:
+            break
+        step()
+    check(fleet.done, "the [fleet] scenario ends")
+    return steps, landings, [fleet.checkpoint(i) for i in range(len(fleet.stations))]
+
+
+def phase_fleet_check() -> dict:
+    """The Fleet facade at FLEET_CHECK_STATIONS stations (mono=False, two
+    channels; FLAC stations on the device route), CUDA against CPU: the
+    ``drive_fleet_check`` scenario, then a FLAC-free fleet with
+    normalize(0.8) and filters. Windows, masks, positions, seek landings and
+    final checkpoints bit-equal; the launch counts of the CUDA runs are
+    printed, and no plain version is called there."""
+    fx = load_fixtures()
+    sources = fleet_check_sources(fx, np.random.default_rng(51))
+    engine_only = [s for i, s in enumerate(sources) if i % 6 in (1, 2, 3, 5)][:12]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        kernels.reset_counts()
+        f = Fleet(sources, device=dev, mono=False, channels=2, device_restore=True,
+                  device_dsp=True)
+        res = drive_fleet_check(f)
+        g = Fleet(engine_only, device=dev)
+        for i in range(0, len(engine_only), 2):
+            g.set_filter(i, "lowpass", 5000)
+        g.normalize(0.8)
+        res2 = []
+        while (r := g.step()) is not None:
+            res2.append((r[0].cpu().numpy(), r[1].copy(), r[2].copy()))
+        runs.append((res, res2))
+        if dev == "cuda":
+            counts, plain = dsp_counts(), plain_calls()
+    ((steps_c, land_c, cks_c), norm_c), ((steps_p, land_p, cks_p), norm_p) = runs
+    check(steps_equal(steps_c, steps_p), "fleet: CUDA windows/masks/positions == CPU")
+    check(land_c == land_p, f"fleet: CUDA seek landings == CPU ({land_c})")
+    check(deep_equal(cks_c, cks_p), "fleet: CUDA final checkpoints == CPU")
+    check(steps_equal(norm_c, norm_p), "fleet: normalized engine-only fleet CUDA == CPU")
+    ran = ("dfpwm_decode", "ima_decode", "qoa_lms", "lpc_restore", "iir_zero", "fma")
+    say("fleet", stations=FLEET_CHECK_STATIONS, windows=len(steps_c),
+        landings=json.dumps(land_c), normalized_stations=len(engine_only),
+        normalized_windows=len(norm_c), equal=True, launches=json.dumps(counts),
+        plain_calls=plain)
+    check(all(counts[k] > 0 for k in ran), f"fleet: kernels (a), (d), (f), (g), (h), FMA ({counts})")
+    check(plain == 0, "fleet: no plain version on the CUDA path")
+    return counts
+
+
+def fleet_main_sources(fx):
+    """bench.py:620-629 at FLEET_STATIONS: one third FLAC 48 kHz mono, one
+    third raw DFPWM 48 kHz, one third IMA-in-WAV at 16 kHz, FLEET_SECONDS
+    each, in turn."""
+    rng = np.random.default_rng(61)
+    fl = fleet_flac_stream(fx, rng, FLEET_SECONDS)
+    df = (LaneSpec("dfpwm", 48000), rng.integers(0, 256, FLEET_SECONDS * 6000, np.uint8).tobytes())
+    wav = ima_wav(rng, FLEET_SECONDS)
+    return [(fl, df, wav)[i % 3] for i in range(FLEET_STATIONS)]
+
+
+def phase_fleet_main_path() -> dict:
+    """The Fleet facade at full width (bench.py:600-640's mix at
+    FLEET_STATIONS stations, FLAC on the device route): construction
+    (container bridging, whole-file feeds) and every step, timed. Launch
+    counts are zeroed just before and read just after. The first window of
+    two stations of each kind is held against a CPU Fleet on those
+    stations. Then [step_breakdown]: two steady steps under torch.profiler
+    (after a warm-up step it discards), per step: the host time of the
+    engine step, the FLAC fleet step (parse, restore staging) and the merge;
+    the device time of kernels (b), (d), (g), (h), the FMA, the copies and
+    the other ops, (b) also by CUDA events; the device's busy share. Every
+    kernel launched in those steps must show in the profile."""
+    fx = load_fixtures()
+    sources = fleet_main_sources(fx)
+    kernels.reset_counts()
+    t0 = sync_time()
+    fleet = Fleet(sources, device="cuda", device_restore=True, device_dsp=True)
+    build = sync_time() - t0
+    t0 = sync_time()  # bench.py:630-636 times the steps, not the construction
+    first, windows = None, 0
+    while not fleet.done:
+        r = fleet.step()
+        if r is None:
+            continue
+        check(tuple(r[0].shape) == (FLEET_STATIONS, 48000) and r[0].dtype == torch.int8,
+              "fleet window shape")
+        first = r[0] if first is None else first
+        windows += 1
+    dt = sync_time() - t0
+    counts, plain = dsp_counts(), plain_calls()
+    audio = fleet.metrics.samples_decoded / 48000
+    say("main_path", case="fleet", stations=FLEET_STATIONS, seconds_per_station=FLEET_SECONDS,
+        windows=windows, construct_seconds=round(build, 4), seconds=round(dt, 4),
+        audio_seconds=round(audio, 1), realtime_factor=round(audio / dt, 1),
+        launches=json.dumps(counts), plain_calls=plain)
+    ran = ("dfpwm_decode_dsp", "ima_decode", "lpc_restore", "iir_zero", "fma")
+    check(all(counts[k] > 0 for k in ran) and plain == 0,
+          f"fleet: kernels (b), (d), (g), (h), FMA launched, no plain version ({counts})")
+    check(audio >= FLEET_STATIONS * FLEET_SECONDS * 0.99, "every station decoded its seconds")
+    sub = [0, 1, 2, 3, 4, 5]
+    cpu = Fleet([sources[i] for i in sub], device="cpu", device_restore=True, device_dsp=True)
+    r = cpu.step()
+    check(r is not None and torch.equal(first[torch.tensor(sub, device="cuda")].cpu(), r[0]),
+          "fleet first window == CPU Fleet on two stations of each kind")
+    del fleet, first
+    torch.cuda.empty_cache()
+
+    # two steady steps under the profiler, after a warm-up step that it
+    # discards: the first kernel of a profile's first step can go unrecorded
+    fleet = Fleet(sources, device="cuda", device_restore=True, device_dsp=True)
+    fleet.step()
+    clock = {"engine": 0.0, "flac": 0.0}
+
+    def timed_sub(name, orig):
+        def wrapped():
+            t1 = time.perf_counter()
+            r = orig()
+            clock[name] += time.perf_counter() - t1
+            return r
+        return wrapped
+
+    fleet.engine.step = timed_sub("engine", fleet.engine.step)
+    fleet.flac.step = timed_sub("flac", fleet.flac.step)
+    b_spans = []
+    fused = sb.dfpwm_decode_dsp_kernel
+    sb.dfpwm_decode_dsp_kernel = event_wrap(fused, b_spans)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1)
+    try:
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            fleet.step()
+            prof.step()
+            kernels.reset_counts()
+            clock.update(engine=0.0, flac=0.0)
+            b_spans.clear()
+            t0 = sync_time()
+            r = fleet.step()
+            prof.step()
+            r2 = fleet.step()
+            wall = (sync_time() - t0) * 1e3
+            prof.step()
+    finally:
+        sb.dfpwm_decode_dsp_kernel = fused
+    step_counts = {k: v for k, v in dsp_counts().items() if v}
+    check(r is not None and bool(r[1].all()) and r2 is not None and bool(r2[1].all()),
+          "the profiled fleet steps deliver every station")
+    # the schedule's step markers span the whole step on the device too
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("ProfilerStep")]
+    kernel_names = sorted({e.name[:90] for e in dev if "at::" not in e.name})
+    names = {"decode_dsp": "dfpwm_decode_kernel<true", "ima": "ima_decode",
+             "lpc_restore": "lpc_restore_kernel", "iir_zero": "iir_zero_kernel",
+             "fma": "fma_kernel", "htod": "Memcpy HtoD", "dtoh": "Memcpy DtoH"}
+    spans = {k: [(e.time_range.start, e.time_range.end) for e in dev if v in e.name]
+             for k, v in names.items()}
+    spans["other"] = [(e.time_range.start, e.time_range.end) for e in dev
+                      if not any(v in e.name for v in names.values())]
+    shown = {"dfpwm_decode_dsp": "decode_dsp", "ima_decode": "ima", "lpc_restore": "lpc_restore",
+             "iir_zero": "iir_zero", "fma": "fma"}
+    missing = [k for k in step_counts if shown.get(k) not in spans or not spans[shown[k]]]
+    check(not missing, f"the fleet steps' profile shows every kernel they launched "
+          f"(missing {missing}; launched {step_counts})")
+    everything = [iv for ivs in spans.values() for iv in ivs]
+    kernels_only = [iv for k, ivs in spans.items() if k not in ("htod", "dtoh") for iv in ivs]
+    engine_ms, flac_ms = clock["engine"] * 1e3 / 2, clock["flac"] * 1e3 / 2
+    say("step_breakdown", case="fleet", stations=FLEET_STATIONS, profiled_steps=2,
+        profiled_step_ms=round(wall / 2, 3), engine_step_host_ms=round(engine_ms, 3),
+        flac_step_host_ms=round(flac_ms, 3), merge_host_ms=round(wall / 2 - engine_ms - flac_ms, 3),
+        launches=json.dumps(step_counts), kernel_names=json.dumps(kernel_names),
+        device_events=len(dev), decode_dsp_events_ms=round(events_ms(b_spans) / 2, 3),
+        **{f"{k}_ms": round(busy_ms(v) / 2, 3) for k, v in spans.items()},
+        busy_kernels=round(busy_ms(kernels_only) / wall, 4),
+        busy_with_copies=round(busy_ms(everything) / wall, 4))
+    del fleet
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2172,6 +2769,13 @@ def main() -> None:
         errs[name] = max(errs[name], err)
     del flac_streams
     phase_flac_transcode(fx)
+    phase_engine_dsp()
+    auplay_launches, auplay_fma_err = phase_auplay_main_path()
+    errs["fma"] = max(errs["fma"], auplay_fma_err)
+    path_launches = [auplay_launches]
+    phase_auplay_step_breakdown()
+    phase_fleet_check()
+    path_launches.append(phase_fleet_main_path())
     phase_times()
     times.update(phase_encode_time(encode_plain_ms))
     times.update(phase_block_times())
@@ -2196,7 +2800,8 @@ def main() -> None:
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"aukit_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": counts[name], "max_abs_err": errs[key], **times[key]}
+         "replaces": replaces, "max_abs_err": errs[key], **times[key],
+         "launches": counts[name] + sum(c.get(name, 0) for c in path_launches)}
         for name, key, src, replaces, counts in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

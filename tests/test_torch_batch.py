@@ -251,20 +251,27 @@ def test_checkpoint_restores_across_packages(direction):
 
 
 def test_unported_pieces_raise():
-    eng = batch.BatchDfpwmDecoder(2, 48000, chunk_bytes=100, device="cpu")
-    for call in (lambda: eng.set_filter(0, "lowpass", 1000.0), lambda: eng.set_mono(0),
-                 lambda: eng.normalize(0.8)):
+    """What is still to port raises, naming its ROADMAP item: every ``mesh``
+    option. The DSP stages are ported: a checkpoint that carries them
+    restores (it raised before they were)."""
+    from aukit_tpu_torch.stream.batch_encode import BatchEncodeEngine, EncodeSpec
+    from aukit_tpu_torch.stream.flac_fleet import FlacFleet
+    from aukit_tpu_torch.stream.fleet import Fleet
+
+    for call in (lambda: FlacFleet(2, mesh=object(), device="cpu"),
+                 lambda: Fleet([b"fLaC"], mesh=object(), device="cpu"),
+                 lambda: BatchEncodeEngine([EncodeSpec("dfpwm")], mesh=object(), device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    eng = batch.BatchDfpwmDecoder(2, 48000, chunk_bytes=100, device="cpu")
     ckpt = eng.checkpoint(0)
-    ckpt["dsp"] = {**ckpt["dsp"], "kind": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.restore(0, ckpt)
+    ckpt["dsp"] = {**ckpt["dsp"], "kind": 1, "alpha": 0.25, "y": 0.5}
+    eng.restore(1, ckpt)
+    g = eng.groups[0]
+    assert g.lp_kind[1] == 1 and g.lp_a[1] == np.float32(0.25) and float(g.filt_y[1]) == 0.5
     ckpt = batch.BatchStreamEngine([batch.LaneSpec("pcm16", 8000, 2)], device="cpu",
                                    mono=False).checkpoint(0)
-    ckpt["dsp"] = {**ckpt["dsp"], "mono": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.restore(0, ckpt)
+    assert ckpt["dsp"]["y"].shape == (2,)
     with pytest.raises(ValueError):
         batch.LaneSpec("dfpwm", channels=2)
 
@@ -430,6 +437,17 @@ for kw in ({}, {"device_restore": True, "device_dsp": True}):
     while fleet.step() is not None:
         pass
     assert fleet.done and fleet.checkpoint(0)["ended"]
+# the Fleet facade over a FLAC and a WAV station, with DSP stages and a seek
+from aukit_tpu_torch.stream.fleet import Fleet
+wav = fixtures.wav_pcm(rng.integers(-9000, 9000, (1, 4000)), 2000, 16)
+facade = Fleet([data, wav], device="cpu")
+facade.set_filter(1, "lowpass", 300)
+r = facade.step()
+assert r[0].shape == (2, 48000) and r[1].all()
+assert facade.seek(1, 1.0) == 1.0
+while facade.step() is not None:
+    pass
+assert facade.done and facade.checkpoint(1)["sub"]["dsp"]["kind"] == 1
 # per-channel windows, and the write path: a transcode and a host-fed encode
 dec = t.BatchStreamEngine([t.LaneSpec("pcm16", 1000, 2), t.LaneSpec("ulaw", 1000)],
                           device="cpu", mono=False)

@@ -1,7 +1,8 @@
 """The CUDA kernels of aukit_tpu_torch on the card, against their plain
 PyTorch versions on the same CUDA tensors, and the CUDA engines (decode,
-per-channel decode, encode, transcode) against the CPU engines. A CUDA
-kernel has no CPU mode, so these tests need an NVIDIA GPU and skip elsewhere. This file imports neither jax nor aukit_tpu, so it also
+per-channel decode, the DSP stages, encode, transcode) against the CPU
+engines. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
+and skip elsewhere. This file imports neither jax nor aukit_tpu, so it also
 runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -370,6 +371,25 @@ def test_block_fleet_engine_on_cuda_matches_cpu():
         (ima_decode_kernel, msadpcm_decode_kernel, qoa_lms_kernel), launches))
     assert_engines_equal(cuda, run_engine(lambda: BatchStreamEngine(specs, device="cpu"),
                                           feeds, vols))
+
+
+def test_dsp_stage_engine_on_cuda_matches_cpu():
+    """The auplay chain (mono toggle, normalize, lowpass/highpass, a filter
+    reconfigured mid-stream, a filtered lane checkpointed and restored) over
+    DFPWM at 48 and 32 kHz, IMA and MS ADPCM at 22.05 kHz, stereo QOA and
+    PCM16 with ``mono=False``: windows, masks, positions and checkpoints of
+    the CUDA engine equal the CPU engine's; kernels (a), (d), (e), (f) and
+    the FMA ran, the fused kernel (b) did not."""
+    specs, feeds = kernel_cases.engine_dsp_fleet(np.random.default_rng(21), 4, 1.5)
+    ran = (dfpwm_decode_kernel, ima_decode_kernel, msadpcm_decode_kernel, qoa_lms_kernel,
+           fma_kernel)
+    before = [k.launches for k in ran] + [dfpwm_decode_dsp_kernel.launches]
+    runs = [kernel_cases.drive_engine_dsp(
+        BatchStreamEngine([LaneSpec(*sp) for sp in specs], device=dev, mono=False), specs, feeds)
+        for dev in ("cuda", "cpu")]
+    assert all(k.launches > n for k, n in zip(ran, before))
+    assert dfpwm_decode_dsp_kernel.launches == before[-1]
+    assert_engines_equal(*runs)
 
 
 def lpc_rows(rng, rows, T, max_order):

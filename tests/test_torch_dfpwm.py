@@ -64,9 +64,9 @@ def test_encode_matches_jax_scan():
 
 
 def test_golden_vectors():
-    out, _ = decode_dfpwm_bytes(GOLDEN["dfpwm_in"].tobytes())
+    out, _ = decode_dfpwm_bytes(GOLDEN["dfpwm_in"].tobytes(), device="cpu")
     np.testing.assert_array_equal(out, GOLDEN["dfpwm_out"])
-    enc, _ = encode_dfpwm_bytes(GOLDEN["dfpwm_enc_in"])
+    enc, _ = encode_dfpwm_bytes(GOLDEN["dfpwm_enc_in"], device="cpu")
     assert enc == GOLDEN["dfpwm_enc_out"].tobytes()
 
 
@@ -86,12 +86,12 @@ def test_host_byte_paths_match_jax():
     rng = np.random.default_rng(14)
     data = rng.integers(0, 256, 300, dtype=np.uint8).tobytes()
     want, want_st = jax_decode_bytes(data)
-    got, got_st = decode_dfpwm_bytes(data)
+    got, got_st = decode_dfpwm_bytes(data, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert_state_equal(want_st, got_st)
     levels = rng.integers(-128, 128, 803)  # truncated to whole bytes
     want_b, want_st = jax_encode_bytes(levels)
-    got_b, got_st = encode_dfpwm_bytes(levels)
+    got_b, got_st = encode_dfpwm_bytes(levels, device="cpu")
     assert got_b == want_b
     assert_state_equal(want_st, got_st)
 

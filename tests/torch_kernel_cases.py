@@ -466,3 +466,58 @@ def ima_cases(device="cuda"):
     for skip in (1, 8, 16):
         lanes, T = 41, 404
         yield f"base_plus_{skip}", [_off_base(nibs(lanes, T), skip)], state(lanes)
+
+
+# -- the engine's DSP stages over a mixed fleet (card test and chip_smoke.py) --------
+
+ENGINE_DSP_SPECS = (("dfpwm", 48000, 1, 0), ("dfpwm", 32000, 1, 0), ("ima", 22050, 1, 256),
+                    ("msadpcm", 22050, 1, 256), ("qoa", 44100, 2, 0), ("pcm16", 22050, 1, 0))
+
+
+def _bytes_per_second(codec: str, rate: int, channels: int, block_align: int) -> int:
+    if codec == "dfpwm":
+        return rate // 8
+    if codec == "ima":
+        return -(-rate // ((block_align - 4 * channels) * 2 // channels + 1)) * block_align
+    if codec == "msadpcm":
+        return -(-rate // ((block_align - 7 * channels) * 2 // channels + 2)) * block_align
+    if codec == "qoa":
+        return -(-rate // 5120) * (8 + channels * (16 + 256 * 8))
+    return rate * 2 * channels
+
+
+def engine_dsp_fleet(rng, per_spec: int, seconds: float = 2.0):
+    """``per_spec`` lanes of each ``ENGINE_DSP_SPECS`` entry with random bytes
+    (every codec decodes any bytes), ragged lengths around ``seconds``:
+    -> (spec tuples (codec, rate, channels, block_align), byte feeds)."""
+    specs = [s for s in ENGINE_DSP_SPECS for _ in range(per_spec)]
+    feeds = [rng.integers(0, 256, int(_bytes_per_second(*s) * seconds * (0.75 + 0.5 * rng.random())),
+                          dtype=np.uint8).tobytes() for s in specs]
+    return specs, feeds
+
+
+def drive_engine_dsp(eng, specs, feeds):
+    """The auplay chain on a ``mono=False`` engine over ``engine_dsp_fleet``:
+    a lowpass on every third lane, a highpass on the next, the mono toggle
+    on every other QOA lane, ``normalize(0.8)``; after the first window a
+    lowpass is reconfigured, after the second a filtered 48 kHz DFPWM lane
+    is checkpointed and restored. -> (steps [(windows, mask, positions)],
+    the last checkpoint of every lane)."""
+    for lane, (codec, rate, _c, _b) in enumerate(specs):
+        if lane % 3 == 0:
+            eng.set_filter(lane, "lowpass", rate / 4)
+        elif lane % 3 == 1:
+            eng.set_filter(lane, "highpass", 200.0)
+        if codec == "qoa" and lane % 2 == 0:
+            eng.set_mono(lane, True)
+        eng.feed(lane, feeds[lane])
+        eng.feed(lane, None)
+    eng.normalize(0.8)
+    steps = []
+    while (r := eng.step()) is not None:
+        steps.append((r[0].cpu().numpy(), r[1].copy(), r[2].copy()))
+        if len(steps) == 1:
+            eng.set_filter(0, "lowpass", specs[0][1] / 8)
+        elif len(steps) == 2:
+            eng.restore(0, eng.checkpoint(0))  # lane 0: a filtered 48 kHz DFPWM lane
+    return steps, [eng.checkpoint(lane) for lane in range(len(specs))]
