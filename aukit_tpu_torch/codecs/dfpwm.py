@@ -178,9 +178,11 @@ def decode_dfpwm_bytes(data: bytes, state: DfpwmState | None = None, device="cud
     from ..kernels.dfpwm_cuda import dfpwm_decode_kernel  # that module builds on this one
 
     device = require_device(device, "decode_dfpwm_bytes")
-    raw = torch.tensor(np.frombuffer(bytes(data), np.uint8)[None, :], device=device)
     if state is None:
         state = DfpwmState.zeros(1, device)
+    if len(data) == 0:  # empty input never reaches the kernel
+        return np.zeros(0, np.int32), state
+    raw = torch.tensor(np.frombuffer(bytes(data), np.uint8)[None, :], device=device)
     out, state = dfpwm_decode_kernel(raw, state)
     return out[0].to(torch.int32).cpu().numpy(), state
 
@@ -204,3 +206,38 @@ def encode_dfpwm_bytes(levels, state: DfpwmState | None = None, device="cuda"):
     raw = torch.tensor(levels[None, :n].astype(np.int8), device=device)
     out, state = dfpwm_encode_kernel(raw, state)
     return out[0].cpu().numpy().tobytes(), state
+
+
+def decode_dfpwm_audio(data: bytes, channels: int = 1, sample_rate: int = 48000, device="cuda"):
+    """reference aukit.dfpwm (aukit.lua:1392): decode the full buffer with ONE
+    shared decoder (kernel (a) on one lane, the whole file), then treat the
+    samples as interleaved 8-bit signed PCM -> float32[channels, N] (numpy)."""
+    from ..ops.pcmcode import decode_pcm
+
+    samples, _ = decode_dfpwm_bytes(data, device=device)
+    return decode_pcm(samples.astype(np.int64), 8, "signed", channels, True)
+
+
+def encode_dfpwm_audio(audio, interleaved: bool = True):
+    """reference Audio:dfpwm (aukit.lua:1005) on the audio's device, by
+    kernel (c): one shared encoder over the interleaved samples (one lane),
+    or one encoder per channel when planar (one lane a channel). The levels
+    are the JAX package's ``trunc(Audio.pcm(8, "signed"))``, computed in
+    float64 on the device. Levels beyond [-128, 127] (audio outside [-1, 1])
+    are clamped first: the encoder's bit decision gives the same bits for a
+    level and for its clamp."""
+    from ..kernels.dfpwm_cuda import dfpwm_encode_kernel  # that module builds on this one
+
+    v = audio.data.to(torch.float64)
+    levels = torch.trunc(v * torch.where(v < 0, 128.0, 127.0)).clamp(-128, 127).to(torch.int8)
+    if interleaved:
+        levels = levels.t().reshape(1, -1)
+    n = (levels.shape[1] // 8) * 8
+    if n == 0:
+        return b"" if interleaved else tuple(b"" for _ in range(levels.shape[0]))
+    out, _ = dfpwm_encode_kernel(levels[:, :n].contiguous(),
+                                 DfpwmState.zeros(levels.shape[0], levels.device))
+    out = out.cpu().numpy()
+    if interleaved:
+        return out[0].tobytes()
+    return tuple(out[c].tobytes() for c in range(out.shape[0]))

@@ -26,6 +26,8 @@ import struct
 import numpy as np
 import torch
 
+from ..config import require_device
+
 FIXED_COEFFS = [[], [1], [2, -1], [3, -3, 1], [4, -6, 4, -1]]
 
 FLAC_METADATA_KEYS = {
@@ -417,9 +419,13 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
         def lanes(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(on)
 
+        from ..kernels.flac_cuda import order_bucket
+
+        # the tap count from the host's orders: the wrapper need not read them back
+        K = order_bucket(int(np.max(sub["order"])))
         restored = lpc_restore_kernel(
             lanes(vals), lanes(sub["order"]), lanes(sub["shift"]), lanes(sub["block"]),
-            lanes(coefs)).cpu().numpy().astype(np.int64)
+            lanes(coefs), K).cpu().numpy().astype(np.int64)
         restored <<= sub["wasted"][:, None]
         return restored[keep]
     from ..native import flacbits as _nb
@@ -433,6 +439,19 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
     restored = restore_lpc_batch(vals, coefs, sub["shift"], sub["order"])
     restored <<= sub["wasted"][:, None]
     return restored[keep]
+
+
+def restore_and_decorrelate(frame_meta, sub, coefs, values_flat, channels: int, depth: int,
+                            device="cuda"):
+    """Batched LPC restore across all subframes on ``device`` (kernel (g);
+    a stream deeper than 24 bits stays on the host, as in the JAX package),
+    then per-frame stereo decorrelation + sign wrap on the host. Returns
+    int64[C, N] raw samples."""
+    device = require_device(device, "restore_and_decorrelate")
+    if len(sub["order"]) == 0:
+        return np.zeros((channels, 0), np.int64)
+    restored_flat = restore_flat(sub, coefs, values_flat, depth, device=True, on=device)
+    return decorrelate_frames(frame_meta, sub["block"], restored_flat, channels, depth)
 
 
 def decorrelate_frames(frame_meta, blocks, restored_flat, channels: int, depth: int):
@@ -497,3 +516,29 @@ def decorrelate(rows: np.ndarray, chan_asgn: int):
         b = right
         a = right + side
     return [a, b]
+
+
+def decode_flac(data: bytes, head: bool = False, device="cuda"):
+    """Full decode -> (float32[C, N] in [-0.5, 0.5) (numpy), sample_rate,
+    meta, depth): the host parse (native C++ when it builds), the LPC
+    restore of every subframe at once on ``device`` (kernel (g)), the stereo
+    decorrelation on the host, and the float64 normalise by 2^depth. (The
+    JAX package runs the whole decode in one native pass; its staged path,
+    the same steps, is its parity oracle.)"""
+    device = require_device(device, "decode_flac")
+    sample_rate, channels, depth, num_samples, meta, pos = parse_flac_header(data)
+    if head:
+        return np.zeros((channels, 0), np.float32), sample_rate, meta, depth
+    frame_meta, sub, coefs, values = parse_all_frames(data, pos, channels, depth)
+    arr = restore_and_decorrelate(frame_meta, sub, coefs, values, channels, depth, device)
+    norm = (arr.astype(np.float64) / (1 << depth)).astype(np.float32)
+    return norm, sample_rate, meta, depth
+
+
+def decode_flac_audio(data: bytes, head: bool = False, device="cuda"):
+    """reference aukit.flac (aukit.lua:1657): an Audio on ``device``."""
+    from ..audio import new_audio
+
+    device = require_device(device, "decode_flac_audio")
+    arr, sample_rate, meta, depth = decode_flac(data, head, device)
+    return new_audio(arr, sample_rate, meta, {"bitDepth": depth, "dataType": "signed"}, device)

@@ -1,5 +1,6 @@
-"""QOA (Quite OK Audio) LMS reconstruction in plain PyTorch — counterpart of
-``aukit_tpu.codecs.qoa`` for the engine's frame lanes.
+"""QOA (Quite OK Audio) decoder — counterpart of ``aukit_tpu.codecs.qoa``:
+the LMS reconstruction in plain PyTorch for the engine's frame lanes, and
+the whole-file decoder (reference aukit.qoa, aukit.lua:1706-1777).
 
 QOA frames carry their full LMS state (4 history + 4 weights per channel)
 in-band, so every (frame, channel) pair decodes as an independent lane: one
@@ -11,12 +12,27 @@ Integer semantics: the reference's ``signed_rshift`` coerces through bit32,
 which is int32 wraparound, and the predictor sum may legitimately wrap. The
 four products are added one by one as int32 tensors, which wrap; a
 ``torch.sum`` over int32 would return int64 and not wrap.
+
+The whole file is parsed on the host (a vectorised numpy pass over each run
+of equal-size frames, copied from the JAX package), and its LMS runs on the
+device as kernel (f) ``qoa_lms_kernel`` over F*C frame x channel lanes of up
+to 5120 samples. (The JAX package sends a whole file's LMS to native C++ on
+the host, to spare a slow remote-TPU link two bulk copies; a card attached
+to its host has no such link.)
+
+Slice layout: 64 bits = [sf:4][r0:3][r1:3]...[r19:3]; the reference reads
+residuals MSB-first by shifting the high word left 3 per sample
+(aukit.lua:1760-1762); all 20 indices are extracted vectorised on the host.
 """
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
+
+from ..config import require_device
 
 # aukit_tpu/codecs/qoa.py:31 (aukit.lua:1662-1679): dequantised residual per
 # (scalefactor, 3-bit residual index)
@@ -71,3 +87,179 @@ def qoa_lms_samples(dq: torch.Tensor, history: torch.Tensor, weights: torch.Tens
     out = (torch.stack(outs) if outs else
            torch.empty((0, dq.shape[0]), dtype=torch.int32, device=dev))
     return out, (torch.stack(h, dim=1), torch.stack(w, dim=1))
+
+
+# -- whole-file decoder (aukit_tpu/codecs/qoa.py:89-269) -------------------------------
+
+
+def parse_qoa_frames(data: bytes, pos: int, file_channels: int, file_sample_rate: int,
+                     file_samples: int):
+    """Per-(frame, channel) state and slices of every frame that
+    ``walk_qoa_headers`` accepts. Returns (frames list, total_samples). Mirrors
+    aukit.lua:1713-1775 including the graceful ``break`` on malformed frame
+    headers."""
+    metas, sample_pos = walk_qoa_headers(data, pos, file_channels, file_sample_rate,
+                                         file_samples)
+    frames = []
+    n = len(data)
+    channels = file_channels
+    for pos, samples, _ in metas:
+        fpos = pos + 8
+        hist = np.zeros((channels, 4), np.int32)
+        wts = np.zeros((channels, 4), np.int32)
+        for c in range(channels):
+            hist[c] = struct.unpack_from(">4h", data, fpos)
+            wts[c] = struct.unpack_from(">4h", data, fpos + 8)
+            fpos += 16
+        nslices_per_ch = -(-samples // 20)
+        total_slices = nslices_per_ch * channels
+        avail = min(total_slices * 8, n - fpos)
+        raw = np.frombuffer(data, np.uint8, count=avail, offset=fpos)
+        if avail < total_slices * 8:  # defensively zero-pad malformed frames
+            raw = np.concatenate([raw, np.zeros(total_slices * 8 - avail, np.uint8)])
+        if raw.ctypes.data % 8:  # malformed frame sizes can misalign the view
+            raw = raw.copy()
+        # slice order: per 20-sample group, one slice per channel
+        slices = raw.view(">u8").astype(np.uint64).reshape(nslices_per_ch, channels)
+        sf = (slices >> np.uint64(60)).astype(np.int64)
+        shifts = (57 - 3 * np.arange(20, dtype=np.uint64)).astype(np.uint64)
+        res = ((slices[:, :, None] >> shifts[None, None, :]) & np.uint64(7)).astype(np.int64)
+        dq = QOA_DEQUANT[sf[:, :, None], res]  # [S, C, 20]
+        dq = np.moveaxis(dq, 1, 0).reshape(channels, -1)  # [C, S*20]
+        frames.append({"history": hist, "weights": wts, "dequant": dq, "samples": samples})
+    return frames, sample_pos
+
+
+def walk_qoa_headers(data: bytes, pos: int, file_channels: int, file_sample_rate: int,
+                     file_samples: int):
+    """Cheap first pass: (pos, samples, frame_size) per valid frame, applying
+    the reference's lenient break conditions (aukit.lua:1732-1740)."""
+    metas = []
+    sample_pos = 0
+    n = len(data)
+    while pos + 16 * file_channels + 8 <= n and sample_pos < file_samples:
+        channels, samplerate_hi, samples, frame_size = struct.unpack_from(">B3sHH", data, pos)
+        samplerate = int.from_bytes(samplerate_hi, "big")
+        data_size = frame_size - 8 - 4 * 4 * channels
+        num_slices = data_size // 8
+        if (
+            channels != file_channels
+            or samplerate != file_sample_rate
+            or frame_size > n - pos - 8
+            or samples * channels > num_slices * 20
+        ):
+            break
+        metas.append((pos, samples, frame_size))
+        sample_pos += samples
+        pos += frame_size
+    return metas, sample_pos
+
+
+def _extract_run(blk: np.ndarray, channels: int):
+    """Vectorized state+slice extraction over a run of equal-size frames.
+    blk: uint8[F, frame_size] -> (dq int32[F, C, S*20], hist, wts int32[F,C,4],
+    samples int32[F])."""
+    F, fs = blk.shape
+    samples = (blk[:, 4].astype(np.int32) << 8) | blk[:, 5]
+    hdr = blk[:, 8: 8 + 16 * channels]
+    state16 = hdr.reshape(F, -1, 2)
+    s = ((state16[..., 0].astype(np.int32) << 8) | state16[..., 1]).astype(np.int32)
+    s = np.where(s >= 32768, s - 65536, s).reshape(F, channels, 2, 4)
+    hist, wts = s[:, :, 0], s[:, :, 1]
+    nslices_per_ch = (fs - 8 - 16 * channels) // (8 * channels)
+    nbytes = nslices_per_ch * channels * 8
+    sl = np.ascontiguousarray(blk[:, 8 + 16 * channels: 8 + 16 * channels + nbytes])
+    slices = sl.view(">u8").astype(np.uint64).reshape(F, nslices_per_ch, channels)
+    sf = (slices >> np.uint64(60)).astype(np.int64)
+    shifts = (57 - 3 * np.arange(20, dtype=np.uint64)).astype(np.uint64)
+    res = ((slices[..., None] >> shifts) & np.uint64(7)).astype(np.int64)
+    dq = QOA_DEQUANT[sf[..., None], res]  # [F, S, C, 20]
+    dq = np.moveaxis(dq, 2, 1).reshape(F, channels, -1)
+    return dq.astype(np.int32), hist, wts, samples
+
+
+def parse_qoa_bulk(data: bytes, pos: int, file_channels: int, file_sample_rate: int,
+                   file_samples: int):
+    """Whole-stream vectorized parse: contiguous equal-size frame runs extract
+    in one numpy pass each (a real file is one run of full frames + a short
+    tail).
+
+    Returns (dq int32[F, C, Tmax], hist, wts int32[F, C, 4], samples int32[F])
+    or None when no frame is valid."""
+    metas, _ = walk_qoa_headers(data, pos, file_channels, file_sample_rate, file_samples)
+    if not metas:
+        return None
+    raw = np.frombuffer(data, np.uint8)
+    runs = []  # (start_index, count, frame_size)
+    i = 0
+    while i < len(metas):
+        p0, _, fs = metas[i]
+        j = i + 1
+        while j < len(metas) and metas[j][2] == fs and metas[j][0] == p0 + (j - i) * fs:
+            j += 1
+        runs.append((i, j - i, fs))
+        i = j
+    parts = []
+    for start, count, fs in runs:
+        p0 = metas[start][0]
+        blk = raw[p0: p0 + count * fs].reshape(count, fs)
+        parts.append(_extract_run(blk, file_channels))
+    tmax = max(p[0].shape[2] for p in parts)
+    F = len(metas)
+    dq = np.zeros((F, file_channels, tmax), np.int32)
+    hist = np.zeros((F, file_channels, 4), np.int32)
+    wts = np.zeros((F, file_channels, 4), np.int32)
+    samples = np.zeros(F, np.int32)
+    at = 0
+    for d, h, w, smp in parts:
+        c = d.shape[0]
+        dq[at: at + c, :, : d.shape[2]] = d
+        hist[at: at + c] = h
+        wts[at: at + c] = w
+        samples[at: at + c] = smp
+        at += c
+    return dq, hist, wts, samples
+
+
+def decode_qoa(data: bytes, device="cuda"):
+    """QOA bytes -> (int32[C, N] reconstructed samples (numpy), sample_rate,
+    file_samples): the host parse, then the LMS of every frame and channel
+    at once by kernel (f) ``qoa_lms_kernel`` on ``device``."""
+    from ..kernels.qoa_cuda import qoa_lms_kernel  # that module builds on this one
+
+    device = require_device(device, "decode_qoa")
+    try:
+        magic, file_samples = struct.unpack_from(">4sI", data, 0)
+    except struct.error as e:
+        raise ValueError("Not a QOA file") from e
+    if magic != b"qoaf":
+        raise ValueError("Not a QOA file")
+    file_channels = data[8]
+    file_sample_rate = int.from_bytes(data[9:12], "big")
+    parsed = parse_qoa_bulk(data, 8, file_channels, file_sample_rate, file_samples)
+    if parsed is None:
+        return np.zeros((file_channels, 0), np.int32), file_sample_rate, file_samples
+    dq, hist, wts, samples = parsed
+    F, C, tmax = dq.shape
+
+    def lanes(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    out, _ = qoa_lms_kernel(lanes(dq.reshape(F * C, tmax), np.int16),
+                            lanes(hist.reshape(F * C, 4), np.int32),
+                            lanes(wts.reshape(F * C, 4), np.int32))
+    out = out.cpu().numpy().astype(np.int32).reshape(F, C, tmax)
+    # per-frame sample masks -> one flat gather per channel
+    keep = np.arange(tmax)[None, :] < samples[:, None]  # [F, tmax]
+    chans = [out[:, c][keep] for c in range(C)]
+    return np.stack(chans), file_sample_rate, file_samples
+
+
+def decode_qoa_audio(data: bytes, device="cuda"):
+    """reference aukit.qoa (aukit.lua:1706): an Audio on ``device``."""
+    from ..audio import new_audio
+    from ..ops import pcmcode
+
+    samples, sample_rate, _ = decode_qoa(data, device)
+    return new_audio(pcmcode.normalize_pcm(samples, 16, "signed"), sample_rate, {},
+                     {"bitDepth": 16, "dataType": "signed"}, device)

@@ -12,6 +12,9 @@ mono engines and an f32[C] row for ``mono=False`` engines; an encode
 checkpoint (``BatchEncodeEngine``) holds ``codec_state`` (three ints:
 charge, strength, previous bit; ``[]`` for PCM lanes), ``volume``,
 ``pending`` (int32[C, k] target ints), ``eof`` and ``samples_in``.
+
+An ``Audio`` crosses as its samples, a float32 [C, N] numpy array (the JAX
+package's ``np.asarray(audio.data)``), with its rate and dicts.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .audio import Audio, new_audio
 from .codecs.dfpwm import FIELDS, DfpwmState
 
 
@@ -49,3 +53,16 @@ def kernel_state_to_numpy(state) -> list[np.ndarray]:
     the same order, as the JAX wrappers return them."""
     return [leaf.cpu().numpy().astype(np.int32, copy=False) for leaf in state]
 
+
+def audio_from_numpy(data, sample_rate: int, metadata: dict | None = None,
+                     info: dict | None = None, device="cuda") -> Audio:
+    """A JAX ``Audio``'s parts (``np.asarray(audio.data)``, its sample rate,
+    metadata and info) -> the port's ``Audio`` on ``device``."""
+    return new_audio(np.asarray(data, np.float32), sample_rate, dict(metadata or {}),
+                     dict(info or {}), device)
+
+
+def audio_to_numpy(audio: Audio) -> np.ndarray:
+    """The port's ``Audio`` -> its float32 [C, N] samples as numpy, as the JAX
+    package's ``np.asarray(audio.data)`` gives them."""
+    return audio.numpy()

@@ -1,6 +1,8 @@
 """ctypes bindings for the native FLAC bitstream parser (``native/flacbits.cpp``)
 — the entry points of ``aukit_tpu.native.flacbits`` that the FLAC fleet calls,
-and the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with.
+the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with, and
+the host DFPWM encode and QOA LMS, the routes the JAX package takes for a
+whole file (``chip_smoke.py`` times the kernels against them).
 
 At first use the repository's ``native/flacbits.cpp`` is compiled by g++ with
 the JAX package's loader's flags into ``aukit_tpu_torch/_build/`` (the file
@@ -90,6 +92,10 @@ def _load():
                                   ctypes.c_int64]
     lib.dfpwm_decode_rows.restype = None
     lib.dfpwm_decode_rows.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64, _I32P, _I32P]
+    lib.dfpwm_encode_rows.restype = None
+    lib.dfpwm_encode_rows.argtypes = [_I32P, ctypes.c_int64, ctypes.c_int64, _I32P, _U8P]
+    lib.qoa_lms.restype = None
+    lib.qoa_lms.argtypes = [_I32P, _I32P, _I32P, _I32P, ctypes.c_int64, ctypes.c_int64]
     return lib
 
 
@@ -222,3 +228,33 @@ def dfpwm_decode_rows(bytes_u8: np.ndarray, state: np.ndarray):
     lib.dfpwm_decode_rows(b.ctypes.data_as(_U8P), L, B, st.ctypes.data_as(_I32P),
                           out.ctypes.data_as(_I32P))
     return out, st
+
+
+def dfpwm_encode_rows(levels: np.ndarray, state: np.ndarray):
+    """Host DFPWM1a encode, bit-identical to ``codecs.dfpwm.dfpwm_encode``.
+    ``levels`` int32[L, N] (N a multiple of 8), ``state`` int32[3, L]
+    (charge, strength, previous bit). Returns (uint8[L, N//8], new state)."""
+    lib = _lib()
+    lv = np.ascontiguousarray(levels, np.int32)
+    st = np.array(state, np.int32, order="C")  # a fresh copy: updated in place
+    L, N = lv.shape
+    if N % 8:
+        raise ValueError(f"levels must hold a multiple of 8 samples per lane, got {N}")
+    out = np.empty((L, N // 8), np.uint8)
+    lib.dfpwm_encode_rows(lv.ctypes.data_as(_I32P), L, N, st.ctypes.data_as(_I32P),
+                          out.ctypes.data_as(_U8P))
+    return out, st
+
+
+def qoa_lms(dequantized: np.ndarray, history: np.ndarray, weights: np.ndarray):
+    """Host QOA LMS: residuals int32[L, T] and the state int32[L, 4] twice ->
+    (int32[L, T] samples, history, weights), the state updated in copies."""
+    lib = _lib()
+    dq = np.ascontiguousarray(dequantized, np.int32)
+    hist = np.array(history, np.int32, order="C")
+    wts = np.array(weights, np.int32, order="C")
+    L, T = dq.shape
+    out = np.empty((L, T), np.int32)
+    lib.qoa_lms(dq.ctypes.data_as(_I32P), out.ctypes.data_as(_I32P),
+                hist.ctypes.data_as(_I32P), wts.ctypes.data_as(_I32P), L, T)
+    return out, hist, wts

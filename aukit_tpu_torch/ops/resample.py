@@ -1,6 +1,8 @@
-"""Resampling as static gather + weight tables — counterpart of the parts of
-``aukit_tpu.ops.resample`` that the batched engine runs (reference
-interpolators aukit.lua:253-284).
+"""Resampling as static gather + weight tables — counterpart of
+``aukit_tpu.ops.resample``: the whole-file resampler behind
+``Audio.resample`` and ``effects.speed``, and the block interpolator the
+batched engine runs (reference interpolators aukit.lua:253-284,
+Audio:resample aukit.lua:653-673).
 
 The output->input mapping is a static function of (n_in, src_rate, dst_rate,
 mode), so index and weight tables are built once in numpy on the host (exact
@@ -13,10 +15,36 @@ float32 results agree bit for bit with the JAX engine's.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..config import CONFIG
 from ..kernels.fma_cuda import fma_kernel as fma
+
+INTERP_MODES = ("none", "linear", "cubic", "sinc")
+
+# Warm-up sample counts per mode (reference interpolation_start/_end,
+# aukit.lua:284), used by the streaming engine.
+INTERPOLATION_START = {"none": 1, "linear": 1, "cubic": 0, "sinc": 0}
+INTERPOLATION_END = {"none": 1, "linear": 2, "cubic": 3, "sinc": 0}
+
+
+@functools.lru_cache(maxsize=256)
+def resample_plan(n_in: int, src_rate: int, dst_rate: int):
+    """Static output->input mapping: (n_out, ffx[int32 n_out], frac[f64 n_out]).
+
+    0-based: out sample i sits at input position t = i*src/dst;
+    ffx = floor(t), frac = t - ffx, exact-rational. Output length is
+    floor(n_in * dst / src), the Lua numeric-for bound."""
+    n_out = (n_in * dst_rate) // src_rate
+    i = np.arange(n_out, dtype=np.int64)
+    num = i * src_rate
+    ffx = num // dst_rate
+    rem = num - ffx * dst_rate
+    frac = rem.astype(np.float64) / dst_rate
+    return n_out, ffx.astype(np.int32), frac
 
 
 def sinc_weights(frac: np.ndarray, window: int) -> np.ndarray:
@@ -92,3 +120,26 @@ def block_interp_device(ext: torch.Tensor, n: int, H: int, ffx0, frac, exact,
         for idx, wt in terms[2:]:
             acc = fma(take(idx), wt, acc)
     return torch.where(exactj, p1, acc)
+
+
+def resample_audio_array(data: torch.Tensor, src_rate: int, dst_rate: int,
+                         mode: str) -> torch.Tensor:
+    """Resample float32 ``data[C, N]`` from src_rate to dst_rate using
+    ``mode``, on ``data``'s device (Audio:resample, aukit.lua:653): integer
+    positions pass the raw sample through; fractional ones are interpolated
+    and clamped to [-1, 1]. Linear and cubic are the JAX package's jitted
+    arithmetic (``block_interp_device``: the edge fallbacks of
+    ``aukit_tpu.ops.resample.resample_audio_array`` are the block form's with
+    no history), bit for bit. Sinc adds the 2W+1 weighted taps one by one
+    with one rounding each; the JAX package sums them with XLA's dot, whose
+    order differs (the JAX tests hold sinc to 2e-6 of the loop oracle)."""
+    n_in = data.shape[1]
+    n_out, ffx, frac = resample_plan(n_in, src_rate, dst_rate)
+    if n_out == 0:
+        return data[:, :0]
+    if mode not in INTERP_MODES:
+        raise ValueError(f"invalid interpolation mode {mode!r}")
+    w = sinc_weights(frac, CONFIG.sinc_window_size) if mode == "sinc" else None
+    exact = frac == 0.0
+    val = block_interp_device(data, n_in, 0, ffx, frac, exact, mode, w)
+    return torch.where(torch.from_numpy(exact).to(data.device), val, val.clamp(-1.0, 1.0))

@@ -12,12 +12,17 @@ the six main paths at full width (the batched DFPWM -> 48 kHz int8 engine, a
 32768-lane block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, a
 2048-lane drip-fed FLAC fleet, a 24576-lane device-to-device transcode of
 mono and stereo PCM16 into DFPWM and PCM16, the auplay DSP chain on 16384
-PCM16 lanes, and a 3072-station Fleet of FLAC, DFPWM and IMA-in-WAV), and
-times the kernels, each beside its bound on the card. Each phase prints one line; any failure raises, so the
-exit code is non-zero and the closing result line is not printed. It exits
+PCM16 lanes, a 3072-station Fleet of FLAC, DFPWM and IMA-in-WAV, auplay's
+whole-file preload chain on 3-minute tracks in every container and a
+60-minute WAV, and bench.py config 5's effects chain on 64 channels of 180 s
+with every other effect on a stereo track), and times the kernels, each
+beside its bound on the card, also at the whole-file loaders' shapes. Each
+phase prints one line; any failure raises, so the exit code is non-zero and
+the closing result line is not printed. It exits
 non-zero at once without a CUDA device.
 Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
-struct only).
+struct only), tests/torch_kernel_cases.py and tests/torch_tracks.py (both
+numpy, torch and aukit_tpu_torch only), each by path.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import aukit_tpu_torch as tk
 from aukit_tpu_torch import (BatchDfpwmDecoder, BatchEncodeEngine, BatchStreamEngine, EncodeSpec,
                              FlacFleet, Fleet, LaneSpec, encode_windows_many, kernels,
                              transcode_fleet)
+from aukit_tpu_torch import effects as tfx
 from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.containers.wav import pcm_wav_header
@@ -47,7 +54,9 @@ from aukit_tpu_torch.kernels import fma_cuda as kf
 from aukit_tpu_torch.kernels import iir_cuda as kh
 from aukit_tpu_torch.kernels import qoa_cuda as kq
 from aukit_tpu_torch.native import flacbits
+from aukit_tpu_torch.ops import resample as ores
 from aukit_tpu_torch.ops import scan as oscan
+from aukit_tpu_torch.ops.resample import resample_plan
 from aukit_tpu_torch.parallel.pipeline import fir_alpha
 from aukit_tpu_torch.stream import batch as sb
 from aukit_tpu_torch.stream import batch_codecs as bc
@@ -1308,23 +1317,11 @@ def bench_subframe(rng, n: int) -> dict:
             "partition_order": 2}
 
 
-def fitted_subframe(sig: np.ndarray) -> dict:
-    """An encoder-like LPC-8 subframe: least-squares coefficients quantised to
-    12 bits, and the best single Rice parameter for the residual."""
-    win = past8(sig)
-    a = np.linalg.lstsq(win.astype(np.float64), sig[8:].astype(np.float64), rcond=None)[0]
-    shift = int(np.clip(np.floor(np.log2(2047 / max(np.abs(a).max(), 1e-6))), 0, 15))
-    coefs = np.clip(np.round(a * (1 << shift)), -2048, 2047).astype(np.int64)
-    res = sig[8:] - ((win @ coefs) >> shift)
-    u = np.where(res >= 0, 2 * res, -2 * res - 1)
-    return {"type": "lpc", "order": 8, "warmup": [int(v) for v in sig[:8]], "precision": 12,
-            "shift": shift, "coefs": [int(c) for c in coefs], "residuals": [int(v) for v in res],
-            "param": int(np.clip(np.log2(max(u.mean(), 1.0)), 0, 14)), "partition_order": 0}
-
-
 def stereo_frame(fx, rng, n: int, rate: int, asgn: int) -> bytes:
     """One stereo frame of two tones and noise: mid/side (10) or left/side
-    (8), an encoder-like LPC-8 subframe for each channel."""
+    (8), an encoder-like LPC-8 subframe for each channel
+    (tests/torch_tracks.py ``fitted_subframe``)."""
+    fitted_subframe = load_test_module("torch_tracks").fitted_subframe
     t = np.arange(n) / rate
     f = rng.uniform(80, 2000, 2)
     left = (6000 * np.sin(2 * np.pi * f[0] * t + rng.uniform(0, 6))
@@ -2153,6 +2150,7 @@ FLEET_CHECK_STATIONS = 48
 def dsp_counts() -> dict:
     return {"dfpwm_decode": kc.dfpwm_decode_kernel.launches,
             "dfpwm_decode_dsp": kc.dfpwm_decode_dsp_kernel.launches,
+            "dfpwm_encode": kc.dfpwm_encode_kernel.launches,
             "ima_decode": ka.ima_decode_kernel.launches,
             "msadpcm_decode": ka.msadpcm_decode_kernel.launches,
             "qoa_lms": kq.qoa_lms_kernel.launches, "lpc_restore": kg.lpc_restore_kernel.launches,
@@ -2724,6 +2722,415 @@ def phase_fleet_main_path() -> dict:
     return counts
 
 
+# -- the whole-file surface: auplay's preload chain and the effects -------------------
+
+CARD = "cuda"  # the device of the whole-file phases (a rehearsal on the CPU sets "cpu")
+WHOLE_SECONDS = 180  # a 3-minute track
+PODCAST_REPEATS = 20  # the 60-minute case: the 3-minute PCM16 track 20 times
+CUT_SECONDS = 10  # the cut the CPU chain runs too
+DFPWM_CUT_SECONDS = 2  # the DFPWM files' cut: their plain loop takes ~80 us a sample
+EFFECTS_CHANNELS = 64  # bench.py:771-792's config 5
+EFFECTS_SECONDS = 180
+EFFECTS_CUT_SECONDS = 2
+# A one-lane DFPWM sample, read from the SASS of the tame loops
+# (tools/cuda_kernel_probe.py sass dfpwm): (the dependent chain from one charge
+# to the next, the integer-pipe instructions a sample). The decode's chain is
+# IMAD.IADD, IMAD, ISETP, VIADDMNMX, VIADDMNMX; 222 of the 16-sample loop's
+# 319 instructions are not IMADs. The encode's is IADD3, IMAD, IMAD, VIADD,
+# SHF, VIMNMX, IMAD.IADD; 594 of the 32-sample loop's 731. A dependent
+# instruction follows the one before after 4.06 cycles, and one warp issues
+# an independent integer instruction every 2.04 (tools/int_rate_probe.cu,
+# PERF.md section 7), at the card's 1980 MHz boost clock.
+DFPWM_ONE_LANE = {"dfpwm_decode": (5, 222 / 16), "dfpwm_encode": (7, 594 / 32)}
+DEPENDENT_CYCLES, ISSUE_CYCLES = 4.06, 2.04
+SM_CLOCK_HZ = 1.98e9
+
+
+def whole_file_tracks(tracks, seconds: float) -> list:
+    """[(name, loader, file bytes, lossless samples or None, seconds)] of the
+    same tones-plus-noise tracks in every container: stereo 44.1 kHz in WAV
+    PCM16, IMA and MS ADPCM (``block_align`` 1024), FLAC (LPC-8, mid/side),
+    QOA, AIFF, AU µ-law and DFPWM-in-WAV; raw DFPWM mono and MDFPWM stereo
+    at 48 kHz. The DFPWM files are the port's own encoders' output on the
+    card (``Audio.wav(1)``, ``Audio.dfpwm()``: kernel (c), one lane
+    interleaved or a lane a channel)."""
+    from aukit_tpu_torch.codecs.g711 import g711_expand_lut
+    from aukit_tpu_torch.ops.pcmcode import normalize_pcm
+
+    x = tracks.synth_track(seconds, 44100, seed=70)
+    x48 = tracks.synth_track(seconds, 48000, seed=71)
+    pcm = normalize_pcm(x.T.reshape(-1), 16, "signed").reshape(-1, 2).T
+    flac, flac_samples = tracks.flac_file(x, 44100)
+    left, right = tk.new_audio(x48 / 32768.0, 48000, device=CARD).dfpwm(False)
+    return [
+        ("wav_pcm16", "wav", tracks.pcm16_wav(x, 44100), pcm),
+        ("wav_ima", "wav", tracks.ima_wav(x, 44100), None),
+        ("wav_msadpcm", "wav", tracks.msadpcm_wav(x, 44100), None),
+        ("flac", "flac", flac, (flac_samples / 65536.0).astype(np.float32)),
+        ("qoa", "qoa", tracks.qoa_file(x, 44100), None),
+        ("aiff", "aiff", tracks.aiff16(x, 44100), pcm),
+        ("au_ulaw", "au", tracks.ulaw_au(x, 44100, g711_expand_lut(True)), None),
+        ("wav_dfpwm", "wav", tk.new_audio(x / 32768.0, 44100, device=CARD).wav(1), None),
+        ("dfpwm", "dfpwm", tk.new_audio(x48[:1] / 32768.0, 48000, device=CARD).dfpwm(), None),
+        ("mdfpwm", "mdfpwm", load_fixtures().mdfpwm_file(left, right, len(left) + len(right)),
+         None),
+    ]
+
+
+# the whole-file surface's FMA call sites: the scan, the resampler, the
+# effects' feedback and allpass blocks
+FMA_SITES = ((oscan, "fma_kernel"), (ores, "fma"), (tfx, "fma_kernel"))
+
+
+def fma_held_to_plain(run) -> tuple[int, float, tuple]:
+    """Runs ``run()`` with every FMA launch at ``FMA_SITES`` held to
+    ``fma_ref`` on the same operands: the kernel at the very shapes a path
+    gives it. -> (launches held, largest |difference| (inf where a NaN
+    differs), the largest launch's shape)."""
+    seen = {"n": 0, "err": 0.0, "numel": -1, "shape": ()}
+
+    def checked(x, y, z):
+        before = kf.fma_kernel.launches
+        out = kf.fma_kernel(x, y, z)
+        seen["n"] += kf.fma_kernel.launches - before  # an empty output launches nothing
+        ref = kf.fma_ref(x, y, z)
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            diff = float((out - ref).abs().max())
+            seen["err"] = max(seen["err"], diff if diff == diff else float("inf"))
+        if out.numel() > seen["numel"]:
+            seen["numel"], seen["shape"] = out.numel(), tuple(out.shape)
+        return out
+
+    saved = [getattr(m, n) for m, n in FMA_SITES]
+    for m, n in FMA_SITES:
+        setattr(m, n, checked)
+    try:
+        run()
+    finally:
+        for (m, n), fn in zip(FMA_SITES, saved):
+            setattr(m, n, fn)
+    return seen["n"], seen["err"], seen["shape"]
+
+
+def card_sync() -> None:
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def auplay_chain(loader: str, raw: bytes, device: str, stages: dict | None = None):
+    """aukit_tpu/cli/auplay.py:58-70 without the sink: load -> resample(48000)
+    -> mono() -> normalize(0.8) -> lowpass(rate / 2) -> stream(48000), every
+    chunk drawn. -> (loaded Audio, samples streamed, [chunks]); ``stages``
+    gets each stage's seconds, the device synchronised after each ("plan":
+    the resampler's host index tables, cached for the resample)."""
+    marks = [time.perf_counter()]
+
+    def mark():
+        if device != "cpu":
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    args = (1, 48000) if loader == "dfpwm" else ()
+    audio = getattr(tk, loader)(raw, *args, device=device)
+    mark()
+    resample_plan(audio.num_samples, audio.sample_rate, 48000)  # the host's index tables
+    mark()
+    out = audio.resample(48000)
+    mark()
+    out = out.mono()
+    mark()
+    tfx.normalize(out, 0.8)
+    mark()
+    tfx.lowpass(out, audio.sample_rate / 2)
+    mark()
+    it, _ = out.stream(48000)
+    chunks = [c for c, _ in it]
+    mark()
+    if stages is not None:
+        for name, a, b in zip(("load", "plan", "resample", "mono", "normalize", "lowpass",
+                               "stream"), marks, marks[1:]):
+            stages[name] = round(b - a, 4)
+    return audio, out.num_samples, chunks
+
+
+def phase_whole_file() -> dict:
+    """auplay's preload chain on the card over a 3-minute track in every
+    container and a 60-minute PCM16 WAV (a podcast episode): each stage
+    timed with the card synchronised, the realtime factor and the peak
+    device memory. Lossless containers (PCM WAV, AIFF, FLAC) decode to the
+    synthesised samples at full length, raw DFPWM to the port's native host
+    decode; every file's chain on a cut (CUT_SECONDS; DFPWM_CUT_SECONDS for
+    the three DFPWM files) gives the CPU chain's chunks bit for bit. The
+    launch counts are zeroed before the files are made (the DFPWM files are
+    kernel (c)'s output) and read after the last chain; then every chain
+    runs again with each FMA launch held to ``fma_ref``. -> (launches, the
+    FMA's largest |difference|)."""
+    from aukit_tpu_torch.ops.pcmcode import normalize_pcm
+
+    tracks = load_test_module("torch_tracks")
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    files = whole_file_tracks(tracks, WHOLE_SECONDS)
+    say("whole_file_tracks", files=len(files), bytes=sum(len(f[2]) for f in files),
+        build_seconds=round(time.perf_counter() - t0, 3))
+    pcm = files[0][3]
+    podcast = tracks.pcm16_wav(np.tile(tracks.synth_track(WHOLE_SECONDS, 44100, seed=70),
+                                       PODCAST_REPEATS), 44100)
+    # the first file again after the others: its first run carries the
+    # process's first launches of the chain's torch operations on the card
+    files += [("wav_pcm16_again", "wav", files[0][2], pcm),
+              ("podcast_wav_pcm16", "wav", podcast, None)]
+    for name, loader, raw, lossless in files:
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        audio, streamed, chunks = auplay_chain(loader, raw, CARD, stages)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if name == "podcast_wav_pcm16":
+            check(audio.num_samples == pcm.shape[1] * PODCAST_REPEATS and bool(
+                (audio.data[:, : pcm.shape[1]].cpu() == torch.from_numpy(pcm)).all()),
+                "podcast: the 60-minute WAV decodes to its samples")
+        elif lossless is not None:
+            check(np.array_equal(audio.numpy(), lossless), f"{name}: decodes to its samples")
+        if name == "dfpwm":
+            nat, _ = flacbits.dfpwm_decode_rows(np.frombuffer(raw, np.uint8)[None, :],
+                                                np.zeros((5, 1), np.int32))
+            check(np.array_equal(audio.numpy()[0], normalize_pcm(nat[0], 8, "signed")),
+                  "dfpwm: the whole file == the native host decode")
+        check(len(chunks) == -(-streamed // 48000) and np.isfinite(chunks[-1]).all(),
+              f"{name}: every second streamed")
+        say("whole_file", file=name, rate=audio.sample_rate, channels=audio.channels,
+            seconds_of_audio=round(audio.duration, 3), bytes=len(raw), wall_s=round(dt, 4),
+            realtime_factor=round(audio.duration / dt, 1), chunks=len(chunks),
+            max_memory_allocated_gb=round(peak / 1e9, 3), stages_s=json.dumps(stages))
+        del audio, chunks
+    counts, plain = dsp_counts(), plain_calls()
+    say("whole_file_launches", launches=json.dumps(counts), plain_calls=plain)
+    ran = ("dfpwm_decode", "dfpwm_encode", "ima_decode", "msadpcm_decode", "qoa_lms",
+           "lpc_restore", "fma")
+    check(all(counts[k] > 0 for k in ran) and plain == 0,
+          f"whole_file: kernels (a), (c), (d), (e), (f), (g) and the FMA ran, no plain "
+          f"version ({counts})")
+    # every file's chain again at full length, each FMA launch held to fma_ref
+    held, fma_err, largest = fma_held_to_plain(
+        lambda: [auplay_chain(loader, raw, CARD) for _, loader, raw, _ in files])
+    say("kernel_vs_plain_main_shape", kernel="fma", case="whole_file_chains", launches=held,
+        largest=json.dumps(list(largest)), equal=fma_err == 0)
+    check(held == counts["fma"] and fma_err == 0, "whole_file: every FMA launch of the chains "
+          f"at full length == fma_ref ({held} of {counts['fma']} launches, error {fma_err})")
+    del files, podcast
+    # the CUDA chain against the CPU chain on a cut of each file (the encoders
+    # start each block from its own header: a cut's file is the full file's start)
+    cuts = {s: whole_file_tracks(tracks, s) for s in (CUT_SECONDS, DFPWM_CUT_SECONDS)}
+    for name, loader, raw, _ in cuts[CUT_SECONDS]:
+        seconds = DFPWM_CUT_SECONDS if "dfpwm" in name else CUT_SECONDS
+        raw = next(f[2] for f in cuts[seconds] if f[0] == name)
+        (_, _, got), (_, _, want) = (auplay_chain(loader, raw, CARD),
+                                     auplay_chain(loader, raw, "cpu"))
+        ok = len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want))
+        say("whole_file_cut", file=name, seconds=seconds, chunks=len(got), cuda_equals_cpu=ok)
+        check(ok, f"{name}: the CUDA chain == the CPU chain on a {seconds} s cut")
+    return counts, fma_err
+
+
+def whole_file_kernel_shapes() -> dict:
+    """Kernels (a), (c), (d), (e), (f), (g) at the whole-file phase's launch
+    shapes (tests/torch_kernel_cases.py ``whole_file_cases``, a 3-minute
+    track), each against its plain version on the same tensors (the
+    one-lane DFPWM decode and encode against the native host routes at full
+    length and the plain version over the first quarter second), then timed
+    by CUDA events beside its bound, its plain version (for (a) and (c) over
+    that quarter second) and the native host route where the port's binding has
+    one ((a), (c), (f), (g)). -> max |error| by row of the ``kernels`` line."""
+    cases = load_test_module("torch_kernel_cases")
+    errs = {}
+    for name, kern, args in cases.whole_file_cases(CARD, WHOLE_SECONDS):
+        if kern in ("dfpwm_decode", "dfpwm_encode"):
+            data, st = args
+            zeros = DfpwmState.zeros(1, CARD)
+            if kern == "dfpwm_decode":
+                run = lambda: kc.dfpwm_decode_kernel(data, st)  # noqa: E731
+                head = data[:, :1500].contiguous()  # a quarter second
+                plain = lambda: kc.dfpwm_decode_ref(head, zeros)  # noqa: E731
+                host = data.cpu().numpy()
+                t0 = time.perf_counter()
+                nat, nat_st = flacbits.dfpwm_decode_rows(host, np.zeros((5, 1), np.int32))
+                native_ms = (time.perf_counter() - t0) * 1e3
+                samples, nbytes = data.shape[1] * 8, data.shape[1] * 9
+                ops = samples * OPS_PER_SAMPLE["dfpwm_decode"]
+            else:
+                run = lambda: kc.dfpwm_encode_kernel(data, st)  # noqa: E731
+                head = data[:, :12000].contiguous()
+                plain = lambda: kc.dfpwm_encode_ref(head, zeros)  # noqa: E731
+                host = data.cpu().numpy().astype(np.int32)
+                t0 = time.perf_counter()
+                nat, nat_st = flacbits.dfpwm_encode_rows(host, np.zeros((3, 1), np.int32))
+                native_ms = (time.perf_counter() - t0) * 1e3
+                samples, nbytes = data.shape[1], data.shape[1] * 9 // 8
+                ops = samples * OPS_PER_SAMPLE["dfpwm_encode"]
+            (out, out_st), ms = timed(run)
+            (ref, _), plain_ms = timed(plain)
+            leaves = np.stack([a.cpu().numpy() for a in out_st.leaves()][: len(nat_st)])
+            ok = (np.array_equal(out.cpu().numpy(), nat.astype(out.cpu().numpy().dtype))
+                  and np.array_equal(leaves, nat_st) and torch.equal(out[:, : ref.shape[1]], ref))
+            err = 0 if ok else int((out[:, : ref.shape[1]].int() - ref.int()).abs().max())
+            ms = min(ms, event_ms(run, 2))
+            key = kern
+            chain, pipe = DFPWM_ONE_LANE[kern]
+            chain_ms = samples * chain * DEPENDENT_CYCLES / SM_CLOCK_HZ * 1e3
+            issue_ms = samples * pipe * ISSUE_CYCLES / SM_CLOCK_HZ * 1e3
+            say("whole_file_kernel", case=name, shape=json.dumps(list(data.shape)), equal=ok,
+                ms=round(ms, 4), native_host_ms=round(native_ms, 4),
+                plain_ms_first_quarter_second=round(plain_ms, 2),
+                dependent_chain_ms=round(chain_ms, 4), integer_issue_ms=round(issue_ms, 4),
+                share_of_one_lane_bound=round(max(chain_ms, issue_ms) / ms, 4))
+            timing(name, ms, plain_ms, ops, nbytes)
+        else:
+            kernel, plain_fn, ops_key = {
+                "ima": (ka.ima_decode_kernel, ka.ima_decode_ref, "ima"),
+                "msadpcm": (ka.msadpcm_decode_kernel, ka.msadpcm_decode_ref, "msadpcm"),
+                "qoa": (kq.qoa_lms_kernel, kq.qoa_lms_ref, "qoa"),
+                "lpc": (kg.lpc_restore_kernel, kg.lpc_restore_ref, None)}[kern]
+            out, ms = timed(lambda: kernel(*args))
+            ref, plain_ms = timed(lambda: plain_fn(*args))
+            ok, err = same(out, ref) if kern == "lpc" else same(out[0], ref[0])
+            if kern != "lpc":
+                st_ok, st_err = same(out[1], ref[1])
+                ok, err = ok and st_ok, max(err, st_err)
+            ms = min(ms, event_ms(lambda: kernel(*args), 3))
+            rows, T = args[0].shape
+            native_ms = None
+            if kern == "qoa":
+                dq, hist, wts = (a.cpu().numpy() for a in args)
+                t0 = time.perf_counter()
+                flacbits.qoa_lms(dq, hist, wts)
+                native_ms = (time.perf_counter() - t0) * 1e3
+            if kern == "lpc":
+                vals, orders, shifts, blocks, coefs, _ = (
+                    a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args)
+                keep = np.arange(T)[None, :] < blocks[:, None]
+                flat = vals[keep].astype(np.int64)
+                offs = np.concatenate([[0], np.cumsum(blocks)])[:-1]
+                t0 = time.perf_counter()
+                flacbits.restore_lpc_flat(flat, offs, blocks, orders, shifts,
+                                          np.zeros_like(blocks), coefs)
+                native_ms = (time.perf_counter() - t0) * 1e3
+                ops = int(blocks.sum()) * lpc_ops_per_sample(8)
+                nbytes = rows * T * 8
+            else:
+                ops = rows * T * OPS_PER_SAMPLE[ops_key]
+                nbytes = args[0].numel() * args[0].element_size() + rows * T * 2
+            key = {"ima": "ima", "msadpcm": "msadpcm", "qoa": "qoa", "lpc": "lpc_restore"}[kern]
+            say("whole_file_kernel", case=name, shape=json.dumps([rows, T]), equal=ok,
+                ms=round(ms, 4), plain_ms=round(plain_ms, 2),
+                native_host_ms=None if native_ms is None else round(native_ms, 4))
+            timing(name, ms, plain_ms, ops, nbytes)
+        errs[key] = max(errs.get(key, 0), err)
+        check(ok, f"{name}: kernel == plain (and native host) at the whole file's shape")
+        del args
+        torch.cuda.empty_cache()
+    return errs
+
+
+def effects_chain(audio) -> tuple:
+    """bench.py:777-785: normalize(0.9) -> mono() -> lowpass(12000) ->
+    resample(48000, "cubic") on a copy of ``audio``; -> (result, seconds of
+    each stage, the device synchronised after each)."""
+    a = tk.new_audio(audio.data, audio.sample_rate, device=audio.device)
+    stages, t0 = {}, time.perf_counter()
+    for name, step in (("normalize", lambda x: tfx.normalize(x, 0.9)), ("mono", lambda x: x.mono()),
+                       ("lowpass", lambda x: tfx.lowpass(x, 12000)),
+                       ("resample", lambda x: x.resample(48000, "cubic"))):
+        a = step(a)
+        if a.device.type == "cuda":
+            torch.cuda.synchronize()
+        stages[name] = round(time.perf_counter() - t0, 4)
+        t0 = time.perf_counter()
+    return a, stages
+
+
+OTHER_EFFECTS = (("amplify", (1.3,)), ("speed", (1.25,)), ("fade", (1.0, 0.2, 1.8, 1.0)),
+                 ("invert", ()), ("center", ()), ("trim", ()), ("delay", (0.3, 0.5)),
+                 ("echo", (1.0, 0.5)), ("reverb", ()), ("highpass", (200,)))
+
+
+def phase_effects_chain() -> dict:
+    """bench.py config 5's chain on a 64-channel 44.1 kHz Audio of 180 s
+    (2.0 GB a float32 tensor; bench.py: 2 s), made on the card from a seed,
+    each stage timed; then every other effect once on the stereo 3-minute
+    track, each timed. The CUDA results equal the CPU's on a 2 s cut. The
+    chain and every effect that launches the FMA run again at full size with
+    each launch held to ``fma_ref``. -> (launches, the FMA's largest
+    |difference|)."""
+    gen = torch.Generator(device=CARD).manual_seed(55)
+    n = EFFECTS_SECONDS * 44100
+    data = (torch.rand((EFFECTS_CHANNELS, n), generator=gen, device=CARD) * 2 - 1) * 0.5
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, stages = effects_chain(tk.new_audio(data, 44100, device=CARD))
+    dt = time.perf_counter() - t0
+    counts = dsp_counts()
+    check(plain_calls() == 0 and counts["fma"] > 0,
+          f"effects_chain: the FMA kernel ran, no plain version ({counts})")
+    say("effects_chain", channels=EFFECTS_CHANNELS, seconds_of_audio=EFFECTS_SECONDS,
+        input_gb=round(data.numel() * 4 / 1e9, 3), wall_s=round(dt, 4),
+        realtime_factor=round(EFFECTS_CHANNELS * EFFECTS_SECONDS / dt, 1),
+        out_samples=out.num_samples, stages_s=json.dumps(stages), launches=json.dumps(counts),
+        max_memory_allocated_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    check(out.num_samples == EFFECTS_SECONDS * 48000 and bool(torch.isfinite(out.data).all()),
+          "effects_chain: finite 48 kHz output of the full length")
+    del out
+    held, fma_err, largest = fma_held_to_plain(
+        lambda: effects_chain(tk.new_audio(data, 44100, device=CARD)))
+    check(held == counts["fma"] and fma_err == 0, "effects_chain: every FMA launch at full size "
+          f"== fma_ref ({held} of {counts['fma']} launches, error {fma_err})")
+    fma_held = {"config5": (held, list(largest))}
+    cut = data[:, : EFFECTS_CUT_SECONDS * 44100]
+    got, _ = effects_chain(tk.new_audio(cut, 44100, device=CARD))
+    want, _ = effects_chain(tk.new_audio(cut.cpu(), 44100, device="cpu"))
+    check(np.array_equal(got.numpy(), want.numpy()), "effects_chain: CUDA == CPU on a 2 s cut")
+    del data, cut
+    torch.cuda.empty_cache()
+    tracks = load_test_module("torch_tracks")
+    x = torch.from_numpy(tracks.synth_track(WHOLE_SECONDS, 44100, seed=70) / 32768.0)
+    stereo = tk.new_audio(x, 44100, device=CARD)
+    times = {}
+    for name, args in OTHER_EFFECTS:
+        a = tk.new_audio(stereo.data, 44100, device=CARD)
+        kernels.reset_counts()
+        card_sync()
+        t0 = time.perf_counter()
+        getattr(tfx, name)(a, *args)
+        card_sync()
+        times[name] = round(time.perf_counter() - t0, 4)
+        launched = dsp_counts()
+        for k, v in launched.items():
+            counts[k] += v
+        check(plain_calls() == 0 and bool(torch.isfinite(a.data).all()),
+              f"{name}: finite output, no plain version")
+        if launched["fma"]:
+            a = tk.new_audio(stereo.data, 44100, device=CARD)
+            held, err, largest = fma_held_to_plain(lambda: getattr(tfx, name)(a, *args))
+            check(held == launched["fma"] and err == 0, f"{name}: every FMA launch at full "
+                  f"length == fma_ref ({held} of {launched['fma']} launches, error {err})")
+            fma_held[name] = (held, list(largest))
+            fma_err = max(fma_err, err)
+        cut = x[:, : EFFECTS_CUT_SECONDS * 44100]
+        c, p = tk.new_audio(cut, 44100, device=CARD), tk.new_audio(cut, 44100, device="cpu")
+        getattr(tfx, name)(c, *args)
+        getattr(tfx, name)(p, *args)
+        check(np.array_equal(c.numpy(), p.numpy()), f"{name}: CUDA == CPU on a 2 s cut")
+    say("effects_each", track="stereo 44.1 kHz", seconds_of_audio=WHOLE_SECONDS,
+        seconds=json.dumps(times), launches=json.dumps(counts))
+    say("kernel_vs_plain_main_shape", kernel="fma", case="effects",
+        launches_and_largest_shape=json.dumps(fma_held), equal=fma_err == 0)
+    del stereo, a
+    torch.cuda.empty_cache()
+    return counts, fma_err
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2776,6 +3183,13 @@ def main() -> None:
     phase_auplay_step_breakdown()
     phase_fleet_check()
     path_launches.append(phase_fleet_main_path())
+    whole_launches, whole_fma_err = phase_whole_file()
+    path_launches.append(whole_launches)
+    for name, err in whole_file_kernel_shapes().items():
+        errs[name] = max(errs.get(name, 0), err)
+    effects_launches, effects_fma_err = phase_effects_chain()
+    path_launches.append(effects_launches)
+    errs["fma"] = max(errs["fma"], whole_fma_err, effects_fma_err)
     phase_times()
     times.update(phase_encode_time(encode_plain_ms))
     times.update(phase_block_times())

@@ -1,7 +1,8 @@
 """The CUDA kernels of aukit_tpu_torch on the card, against their plain
-PyTorch versions on the same CUDA tensors, and the CUDA engines (decode,
-per-channel decode, the DSP stages, encode, transcode) against the CPU
-engines. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
+PyTorch versions on the same CUDA tensors (also at the whole-file loaders'
+launch shapes), the CUDA engines (decode, per-channel decode, the DSP
+stages, encode, transcode) against the CPU engines, and the whole-file
+surface (loaders, auplay's chain, the effects) on the card against the CPU. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
 and skip elsewhere. This file imports neither jax nor aukit_tpu, so it also
 runs where JAX is absent:
 
@@ -18,7 +19,13 @@ import torch
 from aukit_tpu_torch import (BatchDfpwmDecoder, BatchDfpwmEncoder, BatchEncodeEngine,
                              BatchStreamEngine, EncodeSpec, LaneSpec, encode_windows_many,
                              transcode_fleet)
+import aukit_tpu_torch as tk
+from aukit_tpu_torch import effects as fx
+from aukit_tpu_torch import kernels
+from aukit_tpu_torch.codecs import adpcm, qoa
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
+from aukit_tpu_torch.codecs.g711 import g711_expand_lut
+from aukit_tpu_torch.native import flacbits
 from aukit_tpu_torch.kernels import (dfpwm_decode_dsp_kernel, dfpwm_decode_dsp_ref,
                                      dfpwm_decode_kernel, dfpwm_decode_ref, dfpwm_encode_kernel,
                                      dfpwm_encode_ref, fma_kernel, fma_ref,
@@ -53,6 +60,7 @@ QOA_CASES = [c[0] for c in kernel_cases.qoa_cases("cpu")]
 MSADPCM_CASES = [c[0] for c in kernel_cases.msadpcm_cases("cpu")]
 IMA_CASES = [c[0] for c in kernel_cases.ima_cases("cpu")]
 DECODE_CASES = [c[0] for c in kernel_cases.decode_cases("cpu")]
+WHOLE_FILE_CASES = [c[0] for c in kernel_cases.whole_file_cases("cpu", 0.05)]
 
 
 def random_state(rng, lanes, device):
@@ -638,3 +646,125 @@ def test_encode_windows_many_on_streams_matches_in_sequence():
     for got_engine, want_engine in zip(runs[0][1], runs[1][1]):
         for got, want in zip(got_engine, want_engine):
             assert got["codec_state"] == want["codec_state"] and got["samples_in"] == want["samples_in"]
+
+
+# -- the whole-file surface -----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def whole_file_cases():
+    """The cases at a 3-minute track's launch shapes, built once."""
+    return {name: (kern, args) for name, kern, args in kernel_cases.whole_file_cases("cuda")}
+
+
+@pytest.mark.parametrize("name", WHOLE_FILE_CASES)
+def test_whole_file_kernel_cases_match_plain(name, whole_file_cases):
+    """Each kernel at a whole file's launch shape (``whole_file_cases``):
+    IMA and MS ADPCM at a WAV's blocks x channels (1016, 2040, 1010 and 2034
+    nibbles a row), QOA at F*C x 5120 with a short last frame, the LPC
+    restore at a stereo file's subframes, against the plain version on the
+    same tensors; the one-lane DFPWM decode (1,080,000 bytes) and encode
+    (8,640,000 levels) against the native host routes at full length and
+    the plain version over their first quarter second. Outputs and states
+    bit-equal."""
+    kern, args = whole_file_cases[name]
+    if kern in ("dfpwm_decode", "dfpwm_encode"):
+        data, st = args
+        zeros = DfpwmState.zeros(1, "cuda")
+        if kern == "dfpwm_decode":
+            out, st = dfpwm_decode_kernel(data, st)
+            nat, nat_st = flacbits.dfpwm_decode_rows(data.cpu().numpy(), np.zeros((5, 1), np.int32))
+            ref, _ = dfpwm_decode_ref(data[:, :1500].contiguous(), zeros)
+            head = out[:, :12000]
+        else:
+            out, st = dfpwm_encode_kernel(data, st)
+            nat, nat_st = flacbits.dfpwm_encode_rows(data.cpu().numpy().astype(np.int32),
+                                                     np.zeros((3, 1), np.int32))
+            ref, _ = dfpwm_encode_ref(data[:, :12000].contiguous(), zeros)
+            head = out[:, :1500]
+        torch.cuda.synchronize()
+        assert np.array_equal(out.cpu().numpy(), nat.astype(out.cpu().numpy().dtype))
+        leaves = [a.cpu().numpy() for a in st.leaves()][: len(nat_st)]
+        assert np.array_equal(np.stack(leaves), nat_st)
+        assert torch.equal(head, ref)
+        return
+    kernel, plain = {"ima": (ima_decode_kernel, ima_decode_ref),
+                     "msadpcm": (msadpcm_decode_kernel, msadpcm_decode_ref),
+                     "qoa": (qoa_lms_kernel, qoa_lms_ref),
+                     "lpc": (lpc_restore_kernel, lpc_restore_ref)}[kern]
+    if kern == "lpc":
+        assert torch.equal(kernel(*args), plain(*args))
+        return
+    (out, st), (ref, ref_st) = kernel(*args), plain(*args)
+    assert out.dtype == torch.int16 and torch.equal(out, ref)
+    assert_kernel_state_equal(st, ref_st)
+
+
+def test_whole_file_decoders_keep_empty_inputs_from_the_kernels():
+    kernels.reset_counts()
+    assert adpcm.ima_adpcm_blocks(np.zeros((0, 1016)), np.zeros(0), np.zeros(0)).shape == (0, 1016)
+    assert adpcm.decode_msadpcm_blocks(np.zeros((3, 0)), np.zeros(3, int), np.zeros(3),
+                                       np.zeros(3), np.zeros(3)).shape == (3, 0)
+    empty_qoa = b"qoaf" + (0).to_bytes(4, "big") + bytes([2]) + (44100).to_bytes(3, "big")
+    assert qoa.decode_qoa(empty_qoa)[0].shape == (2, 0)
+    assert tk.dfpwm(b"").num_samples == 0
+    assert tk.new_audio(np.zeros((1, 5)), 48000).dfpwm(True) == b""
+    torch.cuda.synchronize()
+    assert sum(fn.launches for fn in kernels.KERNELS) == 0
+    assert sum(fn.calls for fn in kernels.PLAIN) == 0
+
+
+def _auplay(loader, raw, device):
+    a = getattr(tk, loader)(raw, device=device)
+    rate = a.sample_rate
+    m = a.resample(48000).mono()
+    fx.normalize(m, 0.8)
+    fx.lowpass(m, rate / 2)
+    return m.numpy(), [c for c, _ in m.stream(48000)[0]]
+
+
+def test_auplay_chain_on_cuda_matches_cpu():
+    """auplay's preload chain on short tracks of six containers, on the card
+    and on the CPU: every streamed chunk bit-equal; the loaders launch
+    kernels (d), (e), (f), (g) and the FMA, and no plain version runs on the
+    card."""
+    tracks = load_sibling("torch_tracks")
+    x = tracks.synth_track(1.5, 44100, seed=3)
+    files = [("wav", tracks.pcm16_wav(x, 44100)), ("wav", tracks.ima_wav(x, 44100)),
+             ("wav", tracks.msadpcm_wav(x, 44100)), ("qoa", tracks.qoa_file(x, 44100)),
+             ("flac", tracks.flac_file(x, 44100, variants=3)[0]),
+             ("au", tracks.ulaw_au(x, 44100, g711_expand_lut(True)))]
+    launched = {k: 0 for k in (ima_decode_kernel, msadpcm_decode_kernel, qoa_lms_kernel,
+                               lpc_restore_kernel, fma_kernel)}
+    for loader, raw in files:
+        want, want_chunks = _auplay(loader, raw, "cpu")
+        kernels.reset_counts()
+        got, got_chunks = _auplay(loader, raw, "cuda")
+        assert np.array_equal(got, want)
+        assert all(np.array_equal(g, w) for g, w in zip(got_chunks, want_chunks, strict=True))
+        assert sum(fn.calls for fn in kernels.PLAIN) == 0
+        for k in launched:
+            launched[k] += k.launches
+    assert all(n > 0 for n in launched.values())
+
+
+def test_effects_on_cuda_match_cpu():
+    """Every effect on a stereo 44.1 kHz track, on the card and on the CPU:
+    bit-equal (the scans and block loops launch the FMA kernel on the card)."""
+    rng = np.random.default_rng(8)
+    d = ((rng.random((2, 88200)) * 2 - 1) * 0.6).astype(np.float32)
+    d[:, :400] = 0
+    calls = [("amplify", (1.3,)), ("speed", (1.2,)), ("fade", (0.2, 0.1, 1.5, 1.0)),
+             ("invert", ()), ("normalize", (0.8, True)), ("center", ()), ("trim", ()),
+             ("delay", (0.3, 0.5)), ("echo", (0.25, 0.5)), ("reverb", ()),
+             ("lowpass", (3000,)), ("highpass", (200,))]
+    for name, args in calls:
+        a, b = tk.new_audio(d, 44100), tk.new_audio(d, 44100, device="cpu")
+        getattr(fx, name)(a, *args)
+        getattr(fx, name)(b, *args)
+        assert np.array_equal(a.numpy(), b.numpy()), name
+    a, b = tk.new_audio(d, 44100), tk.new_audio(d, 44100, device="cpu")
+    for mode in ("none", "linear", "cubic", "sinc"):
+        assert np.array_equal(a.resample(48000, mode).numpy(), b.resample(48000, mode).numpy())
+    x = rng.random((64, 500))
+    assert np.array_equal(tk.new_audio(x, 44100).mono().numpy(),
+                          tk.new_audio(x, 44100, device="cpu").mono().numpy())

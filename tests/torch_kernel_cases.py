@@ -521,3 +521,79 @@ def drive_engine_dsp(eng, specs, feeds):
         elif len(steps) == 2:
             eng.restore(0, eng.checkpoint(0))  # lane 0: a filtered 48 kHz DFPWM lane
     return steps, [eng.checkpoint(lane) for lane in range(len(specs))]
+
+
+# -- the whole-file loaders' launch shapes (card tests, chip_smoke.py, CPU tests) ----
+
+# A 3-minute track: the loaders launch one kernel call a file, at these shapes
+# (stereo 44.1 kHz for the block codecs, QOA and FLAC; one 48 kHz lane for
+# DFPWM). The CPU tests build the same cases at a fraction of a second.
+WHOLE_FILE_SECONDS = 180.0
+
+
+def whole_file_cases(device="cuda", seconds: float = WHOLE_FILE_SECONDS):
+    """-> (name, kernel, args) at the shapes the whole-file loaders launch:
+    ``kernel`` names the wrapper ("dfpwm_decode", "dfpwm_encode", "ima",
+    "msadpcm", "qoa", "lpc") and ``args`` are its positional arguments.
+     - raw DFPWM (``dfpwm()``): one lane of the whole file, 6000 bytes a
+       second; ``Audio.dfpwm()`` of a mono 48 kHz track: one lane of 48000
+       levels a second (a tone with rails);
+     - IMA and MS ADPCM in WAV at ``block_align`` 1024: lanes = blocks x
+       channels, rows of 1016 (IMA stereo), 2040 (IMA mono), 1010 (MS
+       stereo) and 2034 (MS mono) nibbles, off the 16-byte grid but 2040,
+       with the states a valid header gives (mono IMA's index masked to
+       0..15);
+     - QOA: F x C frame lanes of 5120 residuals, the last frame short (its
+       tail zero, as the loader pads it);
+     - FLAC: F x C subframe rows of 4096, order 8 (the fixtures' LPC-8),
+       the last frame short.
+    The names do not depend on ``seconds``."""
+    rng = np.random.default_rng(58)
+    rate = 44100
+    n = int(seconds * rate)
+    nbytes = int(seconds * 6000)
+    yield ("dfpwm_decode_one_lane", "dfpwm_decode",
+           (torch.tensor(rng.integers(0, 256, (1, nbytes), dtype=np.uint8), device=device),
+            DfpwmState.zeros(1, device)))
+    t = np.arange(nbytes * 8) / 48000
+    levels = np.trunc(127.5 * np.sin(2 * np.pi * 440 * t) + rng.normal(0, 8, t.size))
+    yield ("dfpwm_encode_one_lane", "dfpwm_encode",
+           (torch.tensor(np.clip(levels, -128, 127).astype(np.int8)[None, :], device=device),
+            DfpwmState.zeros(1, device)))
+    for channels, T in ((2, 1016), (1, 2040)):
+        lanes = channels * -(-n // T)
+        sidx = rng.integers(0, 89 if channels == 2 else 16, lanes)
+        yield (f"ima_wav_{channels}ch", "ima",
+               (torch.tensor(rng.integers(0, 16, (lanes, T), dtype=np.uint8), device=device),
+                _i32(rng.integers(-32768, 32768, lanes), device), _i32(sidx, device)))
+    for channels, T in ((2, 1010), (1, 2034)):
+        lanes = channels * -(-n // (T + 2))
+        pidx = rng.integers(0, 7, lanes)
+        yield (f"msadpcm_wav_{channels}ch", "msadpcm",
+               (torch.tensor(rng.integers(-8, 8, (lanes, T), dtype=np.int8), device=device),
+                _i32(rng.integers(-32768, 32768, lanes), device),
+                _i32(rng.integers(-32768, 32768, lanes), device),
+                _i32(rng.integers(16, 2048, lanes), device),
+                _i32(MSADPCM_DEFAULT_COEFFS[0][pidx], device),
+                _i32(MSADPCM_DEFAULT_COEFFS[1][pidx], device)))
+    frames, last = -(-n // 5120), n - (-(-n // 5120) - 1) * 5120
+    dq = _qoa_dq(rng, 2 * frames, 5120)
+    dq[-2:, last:] = 0
+    hist = rng.integers(-32768, 32768, (2 * frames, 4))
+    wts = rng.integers(-32768, 32768, (2 * frames, 4))
+    yield ("qoa_file", "qoa",
+           (torch.tensor(dq, device=device), _i32(hist, device), _i32(wts, device)))
+    frames, last = -(-n // 4096), n - (-(-n // 4096) - 1) * 4096
+    rows = 2 * frames
+    shifts = rng.choice([9, 10, 12], rows)
+    # stable order-8 predictors (positive taps summing to 0.9), as a fitted
+    # stream has: the samples stay far inside the Pallas kernel's exact range
+    w = rng.random((rows, 8))
+    coefs = np.zeros((rows, 32), np.int64)
+    coefs[:, :8] = np.floor(0.9 * w / w.sum(1, keepdims=True) * (1 << shifts)[:, None])
+    vals = rng.integers(-2000, 2000, (rows, 4096))
+    vals[:, :8] = rng.integers(-30000, 30000, (rows, 8))
+    blocks = np.full(rows, 4096)
+    blocks[-2:] = last
+    yield ("lpc_file", "lpc", tuple(_i32(a, device) for a in (
+        vals, np.full(rows, 8), shifts, blocks, coefs)) + (8,))
