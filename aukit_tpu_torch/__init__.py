@@ -11,17 +11,19 @@ or per-channel windows, with per-lane filter, mono and normalize stages),
 the batched FLAC fleet, the ``Fleet`` facade over both (any container, with
 seek) and the batched encode engine (the write path: DFPWM and PCM
 8/16/24/32, device-to-device transcodes) on an NVIDIA GPU, with hand-written
-CUDA kernels for Hopper. It mirrors the module paths and public names of the
-JAX package ``aukit_tpu``, which stays the reference, and imports neither
-``jax`` nor ``aukit_tpu``. Not ported yet: the single-stream iterators of
-``stream``, ``play``, ``player`` and ``play_file`` (they raise).
+CUDA kernels for Hopper; and the single-stream iterators of ``stream``
+(``stream.pcm``, ``.wav``, ``.flac``, ...: one second of 48 kHz audio a
+call, their block decodes on ``device``). It mirrors the module paths and
+public names of the JAX package ``aukit_tpu``, which stays the reference, and
+imports neither ``jax`` nor ``aukit_tpu``. Not ported yet: ``play``,
+``player`` and ``play_file`` (they raise).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .audio import Audio, new_audio
+from .audio import Audio, loaded_audio, new_audio
 from .codecs.dfpwm import (DfpwmState, decode_dfpwm_bytes, dfpwm_decode, dfpwm_encode,
                            encode_dfpwm_bytes)
 from .config import CONFIG, require_device
@@ -70,7 +72,8 @@ def pcm(
     check_data_type(data_type, bit_depth)
     device = require_device(device, "pcm")
     arr = pcmcode.decode_pcm(data, bit_depth, data_type, channels, interleaved, big_endian)
-    return new_audio(arr, sample_rate, {}, {"bitDepth": bit_depth, "dataType": data_type}, device)
+    return loaded_audio(arr, sample_rate, {}, {"bitDepth": bit_depth, "dataType": data_type},
+                        device)
 
 
 def adpcm(
@@ -90,7 +93,7 @@ def adpcm(
     preds = decode_ima_adpcm(data, channels, top_first, interleaved, predictor, step_index,
                              device)
     norm = pcmcode.normalize_pcm(preds, 16, "signed")
-    return new_audio(norm, sample_rate, {}, {"bitDepth": 16, "dataType": "signed"}, device)
+    return loaded_audio(norm, sample_rate, {}, {"bitDepth": 16, "dataType": "signed"}, device)
 
 
 def msadpcm(
@@ -108,7 +111,7 @@ def msadpcm(
     device = require_device(device, "msadpcm")
     preds = decode_msadpcm(data, block_align, channels, coefficients, device=device)
     norm = pcmcode.normalize_pcm(preds, 16, "signed")
-    return new_audio(norm, sample_rate, {}, {"bitDepth": 16, "dataType": "signed"}, device)
+    return loaded_audio(norm, sample_rate, {}, {"bitDepth": 16, "dataType": "signed"}, device)
 
 
 def g711(data: bytes, ulaw: bool, channels: int = 1, sample_rate: int = 8000,
@@ -119,8 +122,8 @@ def g711(data: bytes, ulaw: bool, channels: int = 1, sample_rate: int = 8000,
 
     device = require_device(device, "g711")
     arr = decode_g711(data, ulaw, channels, denom=0x2000)
-    return new_audio(arr, sample_rate, {"bitDepth": 14 if ulaw else 13, "dataType": "signed"},
-                     {}, device)
+    return loaded_audio(arr, sample_rate, {"bitDepth": 14 if ulaw else 13, "dataType": "signed"},
+                        {}, device)
 
 
 def dfpwm(data: bytes, channels: int = 1, sample_rate: int = 48000, device="cuda") -> Audio:
@@ -130,7 +133,7 @@ def dfpwm(data: bytes, channels: int = 1, sample_rate: int = 48000, device="cuda
 
     device = require_device(device, "dfpwm")
     arr = decode_dfpwm_audio(data, channels, sample_rate, device)
-    return new_audio(arr, sample_rate, {}, {"bitDepth": 8, "dataType": "signed"}, device)
+    return loaded_audio(arr, sample_rate, {}, {"bitDepth": 8, "dataType": "signed"}, device)
 
 
 def mdfpwm(data: bytes, head: bool = False, device="cuda") -> Audio:
@@ -205,22 +208,22 @@ def detect(data: bytes):
 
 def _not_ported(name: str):
     raise NotImplementedError(
-        f"aukit_tpu_torch.{name}: playback is not ported yet (ROADMAP queue 1 item 6, "
-        "the single-stream surface and the CLIs)")
+        f"aukit_tpu_torch.{name}: playback is not ported yet (ROADMAP queue 1 item 1, "
+        "playback and the CLIs)")
 
 
 def play(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
+    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 1)."""
     _not_ported("play")
 
 
 def player(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
+    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 1)."""
     _not_ported("player")
 
 
 def play_file(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
+    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 1)."""
     _not_ported("play_file")
 
 

@@ -55,6 +55,16 @@ def _sum_in_order(rows: list) -> torch.Tensor:
     return acc
 
 
+def mean_channels(data: torch.Tensor) -> torch.Tensor:
+    """The mean of ``data[C, N]``'s rows as ``[1, N]``, in the order XLA
+    computes a jitted ``mean(axis=0)``: see ``Audio.mono``."""
+    c = data.shape[0]
+    run = -(-c // 2) if 32 < c <= 64 else 32 if c % 32 == 0 else c
+    rows = [data[i: i + 1] for i in range(c)]
+    parts = [_sum_in_order(rows[i: i + run]) for i in range(0, c, run)]
+    return _sum_in_order(parts) * float(np.float32(1.0 / c))
+
+
 @dataclasses.dataclass
 class Audio:
     """A chunk of audio: ``data[C, N]`` float32 in [-1, 1] at ``sample_rate`` Hz."""
@@ -122,11 +132,7 @@ class Audio:
         multiple of 32 as runs of 32, each run in order, then the runs in
         order. Other counts above 64 are added in order here, which differs
         from XLA's reduce within float32 rounding. The same on every device."""
-        c = self.channels
-        run = -(-c // 2) if 32 < c <= 64 else 32 if c % 32 == 0 else c
-        rows = [self.data[i: i + 1] for i in range(c)]
-        parts = [_sum_in_order(rows[i: i + run]) for i in range(0, c, run)]
-        return self._like(_sum_in_order(parts) * float(np.float32(1.0 / c)))
+        return self._like(mean_channels(self.data))
 
     def concat(self, *others: "Audio") -> "Audio":
         """Concatenate along time (aukit.lua:696): later audios are resampled to
@@ -288,3 +294,11 @@ def new_audio(data, sample_rate: int, metadata: dict | None = None, info: dict |
     float32 on ``device`` (pass ``device="cpu"`` for the CPU)."""
     device = require_device(device, "new_audio")
     return Audio(_as_data(data, device), int(sample_rate), metadata or {}, info or {})
+
+
+def loaded_audio(data, sample_rate, metadata: dict, info: dict, device) -> Audio:
+    """The loaders' Audio: as ``new_audio``, but the sample rate is kept as
+    given, as the JAX loaders keep it (an AIFF header or a caller may give a
+    fractional rate, such as 22254.545 Hz)."""
+    device = require_device(device, "loaded_audio")
+    return Audio(_as_data(data, device), sample_rate, metadata, info)

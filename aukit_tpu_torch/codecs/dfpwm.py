@@ -169,6 +169,55 @@ def dfpwm_encode(levels_i32: torch.Tensor, state: DfpwmState):
     return enc, DfpwmState(q, s, lb, state.previous_charge, state.lowpass)
 
 
+# -- the stream iterators' decoder -----------------------------------------------------
+
+
+class DfpwmStreamDecoder:
+    """Stateful lane-batched decoder mirroring ``dfpwm.make_decoder()``
+    semantics: feed successive byte chunks, receive int32 sample arrays (the
+    JAX package's ``DfpwmStreamDecoder``). ``stream.dfpwm`` feeds it 6000 *
+    channels bytes a call (aukit.lua:2446), ``stream.mdfpwm`` two lanes of
+    6000. Routed as ``_routed_decode`` routes a chunk: ``device`` is where
+    kernel (a) runs where the native library is absent, and is checked
+    there; the native route needs no card."""
+
+    def __init__(self, lanes: int = 1, *, device="cuda"):
+        self.lanes = lanes
+        self.device = device
+        self.state = DfpwmState.zeros(lanes)
+
+    def decode(self, chunks) -> np.ndarray:
+        """uint8[lanes, n] (or bytes for lanes==1) -> int32[lanes, n*8]"""
+        if isinstance(chunks, (bytes, bytearray, memoryview)):
+            chunks = np.frombuffer(bytes(chunks), dtype=np.uint8)[None, :]
+        chunks = np.atleast_2d(np.asarray(chunks, dtype=np.uint8))
+        if chunks.shape[1] == 0:
+            return np.zeros((chunks.shape[0], 0), np.int32)
+        out, self.state = _routed_decode(chunks, self.state, self.device)
+        return out
+
+
+def _routed_decode(chunks: np.ndarray, state: DfpwmState, device):
+    """Host-resident bytes of a few lanes -> (int32[L, n*8] numpy, new state),
+    routed as the JAX package routes them: the native C++ rows decoder when
+    it builds (a chunk of one or two lanes is one thread's serial step, which
+    the host runs 2-3x faster than one lane of kernel (a), PERF.md section
+    6), else kernel (a) ``dfpwm_decode_kernel`` on ``device`` (its plain
+    version on the CPU; a CUDA ``device`` without a card raises). The state
+    stays where its route runs it."""
+    from ..kernels.dfpwm_cuda import dfpwm_decode_kernel  # that module builds on this one
+    from ..native import flacbits as _nb
+
+    if _nb.available():
+        st = np.stack([a.cpu().numpy() for a in state.leaves()]).astype(np.int32)
+        out, st2 = _nb.dfpwm_decode_rows(chunks, st)
+        return out, DfpwmState(*(torch.from_numpy(st2[i].copy()) for i in range(5)))
+    device = require_device(device, "DfpwmStreamDecoder")
+    state = DfpwmState(*(a.to(device) for a in state.leaves()))
+    out, state = dfpwm_decode_kernel(torch.tensor(chunks, device=device), state)
+    return out.to(torch.int32).cpu().numpy(), state
+
+
 # -- whole-buffer entry points ----------------------------------------------------------
 
 def decode_dfpwm_bytes(data: bytes, state: DfpwmState | None = None, device="cuda"):

@@ -400,16 +400,23 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
     device ``on`` and restored by ``lpc_restore_kernel``: the CUDA kernel on
     a card, its plain version on the CPU (the JAX package's interpret
     mode). ``depth`` must be the batch's maximum: a batch deeper than 24 bits
-    stays on the host, as in the JAX package. Otherwise (``device`` None or
-    False) the native C++ in-place restore runs, else the numpy batch."""
+    stays on the host, as in the JAX package, and so does a malformed batch
+    whose warm-up or residuals leave int32 (one host check of their minimum
+    and maximum before staging). A malformed stream whose unstable predictor
+    drives restored samples out of int32 is restored on ``on`` all the same:
+    the kernel reports the rows whose int32 store wrapped, and those rows
+    are restored again in int64 rows by the kernel's wide entry point, on
+    the same device, as the JAX package's host restore keeps them in int64.
+    Otherwise (``device`` None or False) the native C++ in-place restore
+    runs, else the numpy batch."""
     S = len(sub["order"])
     if S == 0:
         return np.zeros(0, np.int64)
     offs = np.concatenate([[0], np.cumsum(sub["block"])])
     T_max = int(sub["block"].max())
     keep = np.arange(T_max)[None, :] < np.asarray(sub["block"])[:, None]
-    if device and depth <= DEVICE_MAX_DEPTH:
-        from ..kernels.flac_cuda import lpc_restore_kernel
+    if device and depth <= DEVICE_MAX_DEPTH and _fits_int32(values_flat):
+        from ..kernels.flac_cuda import lpc_restore_kernel, order_bucket
 
         # staging scatters the flat values in one masked assignment
         # (row-major order == the parser's span order)
@@ -419,13 +426,17 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
         def lanes(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(on)
 
-        from ..kernels.flac_cuda import order_bucket
-
         # the tap count from the host's orders: the wrapper need not read them back
         K = order_bucket(int(np.max(sub["order"])))
-        restored = lpc_restore_kernel(
-            lanes(vals), lanes(sub["order"]), lanes(sub["shift"]), lanes(sub["block"]),
-            lanes(coefs), K).cpu().numpy().astype(np.int64)
+        args = [lanes(vals), lanes(sub["order"]), lanes(sub["shift"]), lanes(sub["block"]),
+                lanes(coefs[:, :K])]
+        wrapped = torch.empty(S, dtype=torch.int32, device=on)
+        restored = lpc_restore_kernel(*args, K, wrapped=wrapped).cpu().numpy().astype(np.int64)
+        rows = np.flatnonzero(wrapped.cpu().numpy())
+        if rows.size:
+            pick = torch.from_numpy(rows).to(on)
+            args[0] = args[0].to(torch.int64)
+            restored[rows] = lpc_restore_kernel(*(a[pick] for a in args), K).cpu().numpy()
         restored <<= sub["wasted"][:, None]
         return restored[keep]
     from ..native import flacbits as _nb
@@ -439,6 +450,13 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
     restored = restore_lpc_batch(vals, coefs, sub["shift"], sub["order"])
     restored <<= sub["wasted"][:, None]
     return restored[keep]
+
+
+def _fits_int32(values: np.ndarray) -> bool:
+    """Whether every warm-up and residual value fits the int32 rows kernel
+    (g) restores: one host pass over the batch's minimum and maximum."""
+    return values.size == 0 or (int(values.min()) >= -(1 << 31)
+                                and int(values.max()) < (1 << 31))
 
 
 def restore_and_decorrelate(frame_meta, sub, coefs, values_flat, channels: int, depth: int,
@@ -518,19 +536,27 @@ def decorrelate(rows: np.ndarray, chan_asgn: int):
     return [a, b]
 
 
-def decode_flac(data: bytes, head: bool = False, device="cuda"):
+def decode_flac(data: bytes, head: bool = False, use_native: bool | None = None, *,
+                device="cuda"):
     """Full decode -> (float32[C, N] in [-0.5, 0.5) (numpy), sample_rate,
     meta, depth): the host parse (native C++ when it builds), the LPC
     restore of every subframe at once on ``device`` (kernel (g)), the stereo
     decorrelation on the host, and the float64 normalise by 2^depth. (The
     JAX package runs the whole decode in one native pass; its staged path,
-    the same steps, is its parity oracle.)"""
+    the same steps, is its parity oracle.) ``use_native``: None parses
+    natively when the library builds; False parses in Python; True runs
+    every step the JAX package runs natively on the host (the parse and the
+    restore: no kernel), and raises when the library does not build."""
     device = require_device(device, "decode_flac")
     sample_rate, channels, depth, num_samples, meta, pos = parse_flac_header(data)
     if head:
         return np.zeros((channels, 0), np.float32), sample_rate, meta, depth
-    frame_meta, sub, coefs, values = parse_all_frames(data, pos, channels, depth)
-    arr = restore_and_decorrelate(frame_meta, sub, coefs, values, channels, depth, device)
+    frame_meta, sub, coefs, values = parse_all_frames(data, pos, channels, depth, use_native)
+    if use_native:
+        restored = restore_flat(sub, coefs, values, depth)
+        arr = decorrelate_frames(frame_meta, sub["block"], restored, channels, depth)
+    else:
+        arr = restore_and_decorrelate(frame_meta, sub, coefs, values, channels, depth, device)
     norm = (arr.astype(np.float64) / (1 << depth)).astype(np.float32)
     return norm, sample_rate, meta, depth
 
@@ -540,5 +566,5 @@ def decode_flac_audio(data: bytes, head: bool = False, device="cuda"):
     from ..audio import new_audio
 
     device = require_device(device, "decode_flac_audio")
-    arr, sample_rate, meta, depth = decode_flac(data, head, device)
+    arr, sample_rate, meta, depth = decode_flac(data, head, device=device)
     return new_audio(arr, sample_rate, meta, {"bitDepth": depth, "dataType": "signed"}, device)

@@ -221,12 +221,31 @@ def parse_qoa_bulk(data: bytes, pos: int, file_channels: int, file_sample_rate: 
     return dq, hist, wts, samples
 
 
-def decode_qoa(data: bytes, device="cuda"):
-    """QOA bytes -> (int32[C, N] reconstructed samples (numpy), sample_rate,
-    file_samples): the host parse, then the LMS of every frame and channel
-    at once by kernel (f) ``qoa_lms_kernel`` on ``device``."""
+def qoa_lms_batched(dq: np.ndarray, hist: np.ndarray, wts: np.ndarray,
+                    device="cuda") -> np.ndarray:
+    """The LMS of host-resident frame x channel lanes, residuals int[L, T]
+    and state int32[L, 4] -> int32[L, T] samples (numpy), by kernel (f)
+    ``qoa_lms_kernel`` on ``device`` (its plain version on the CPU). The
+    whole-file decoder and ``stream.qoa`` share it, so both give the same
+    samples (the JAX package's runs on the host: see the module docstring)."""
     from ..kernels.qoa_cuda import qoa_lms_kernel  # that module builds on this one
 
+    device = require_device(device, "qoa_lms_batched")
+
+    def lanes(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    out, _ = qoa_lms_kernel(lanes(dq, np.int16), lanes(hist, np.int32), lanes(wts, np.int32))
+    return out.cpu().numpy().astype(np.int32)
+
+
+def decode_qoa(data: bytes, use_native: bool | None = None, *, device="cuda"):
+    """QOA bytes -> (int32[C, N] reconstructed samples (numpy), sample_rate,
+    file_samples): the host parse, then the LMS of every frame and channel
+    at once by kernel (f) on ``device`` (``qoa_lms_batched``).
+    ``use_native=True`` runs the LMS in the native C++ on the host instead,
+    as the JAX package's native route does (no kernel), and raises when the
+    library does not build."""
     device = require_device(device, "decode_qoa")
     try:
         magic, file_samples = struct.unpack_from(">4sI", data, 0)
@@ -241,14 +260,14 @@ def decode_qoa(data: bytes, device="cuda"):
         return np.zeros((file_channels, 0), np.int32), file_sample_rate, file_samples
     dq, hist, wts, samples = parsed
     F, C, tmax = dq.shape
+    lanes = (dq.reshape(F * C, tmax), hist.reshape(F * C, 4), wts.reshape(F * C, 4))
+    if use_native:
+        from ..native import flacbits
 
-    def lanes(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
-
-    out, _ = qoa_lms_kernel(lanes(dq.reshape(F * C, tmax), np.int16),
-                            lanes(hist.reshape(F * C, 4), np.int32),
-                            lanes(wts.reshape(F * C, 4), np.int32))
-    out = out.cpu().numpy().astype(np.int32).reshape(F, C, tmax)
+        out = flacbits.qoa_lms(*lanes)[0]
+    else:
+        out = qoa_lms_batched(*lanes, device=device)
+    out = out.reshape(F, C, tmax)
     # per-frame sample masks -> one flat gather per channel
     keep = np.arange(tmax)[None, :] < samples[:, None]  # [F, tmax]
     chans = [out[:, c][keep] for c in range(C)]
@@ -260,6 +279,6 @@ def decode_qoa_audio(data: bytes, device="cuda"):
     from ..audio import new_audio
     from ..ops import pcmcode
 
-    samples, sample_rate, _ = decode_qoa(data, device)
+    samples, sample_rate, _ = decode_qoa(data, device=device)
     return new_audio(pcmcode.normalize_pcm(samples, 16, "signed"), sample_rate, {},
                      {"bitDepth": 16, "dataType": "signed"}, device)

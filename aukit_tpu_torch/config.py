@@ -1,7 +1,8 @@
 """Global configuration — counterpart of ``aukit_tpu.config``: the settings
-the batched DFPWM engine reads (reference switches aukit.lua:96-99
-``defaultInterpolation`` and aukit.lua:129 ``sincWindowSize``, and the 48 kHz
-speaker output rate), and the device check every entry point makes."""
+the engines and stream iterators read (reference switches aukit.lua:96-99
+``defaultInterpolation`` and aukit.lua:129 ``sincWindowSize``, the 48 kHz
+speaker output rate and chunk, the quirk switch), and the device check every
+entry point makes."""
 
 from __future__ import annotations
 
@@ -16,8 +17,15 @@ class Config:
     default_interpolation: str = "linear"
     # half-width of the windowed-sinc interpolator (the high-quality setting)
     sinc_window_size: int = 30
+    # output samples per channel per stream chunk (one second at 48 kHz,
+    # aukit.lua:2395)
+    chunk_samples: int = 48000
     # output sample rate of the streaming pipeline
     output_rate: int = 48000
+    # replicate the reference's stream-path quirks (Q9: the per-chunk lowpass
+    # re-seed; Q28: a malformed IMA step index errors the stream); False
+    # keeps the fixed semantics, as in the JAX package
+    compat_quirks: bool = False
 
 
 CONFIG = Config()

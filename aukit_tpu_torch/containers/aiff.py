@@ -19,7 +19,7 @@ import struct
 
 import numpy as np
 
-from ..audio import Audio, new_audio
+from ..audio import Audio, loaded_audio
 from ..config import require_device
 from ..ops import pcmcode
 
@@ -94,9 +94,7 @@ def _decode_aiff(data: bytes, head: bool, device) -> Audio:
                 arr = decode_g711(payload, compression in ("ulaw", "ULAW"), channels, denom=0x2000)
             else:
                 raise ValueError(f"Unsupported compression scheme {compression}")
-            obj = new_audio(arr, sr, device=device)
-            obj.metadata, obj.info = meta, info
-            return obj
+            return loaded_audio(arr, sr, meta, info, device)
         elif cid == b"NAME":
             meta["title"] = data[pos: pos + size].decode("latin-1")
             pos += size

@@ -30,10 +30,17 @@
 // 64-bit integers: the products are summed in 64 bits (wrapping, as numpy's
 // int64 einsum does) and the prediction is (sum << max(-shift, 0)) >>
 // max(shift, 0), the rule of codecs/flac.py restore_lpc_batch. Inside the
-// limb kernel's domain this equals it bit for bit; outside it this kernel
-// follows the int64 host restore, except that each restored sample is
-// stored as int32 (wrapping) where the host keeps int64. Shift amounts are
-// clamped to 63, where numpy's would be undefined.
+// limb kernel's domain this equals it bit for bit. Outside it (a malformed
+// stream whose unstable predictor drives a sample out of int32) the int32
+// row wraps where the host's int64 restore does not. The kernel reports
+// such a row: where ``wrapped`` is given it sets wrapped[row] to 1 if any
+// restored sample's int64 value (res + pred, wrapping in 64 bits as the
+// host's) differs from the int32 it stored, else 0. The test is off the
+// chain from one sample to the next. The wide entry point,
+// aukit_lpc_restore_wide, restores such rows again in int64 rows, one
+// thread a row reading and writing device memory directly: the rows of
+// malformed streams only, so nothing of the pipeline is spent on it.
+// Shift amounts are clamped to 63, where numpy's would be undefined.
 //
 // What bounds it on the H100 (measured: PERF.md). A sample is 4 bytes in, 4
 // out and K 64-bit multiply-adds: at K = 8 and 32768 rows the bytes bound
@@ -68,11 +75,20 @@ __device__ __forceinline__ unsigned long long mad_wide(int a, int b, unsigned lo
   return d;
 }
 
+// Whether res + pred, summed in 64 bits and wrapping as the host's int64
+// restore does, differs from v, its low 32 bits as stored.
+__device__ __forceinline__ bool leaves_int32(int res, long long pred, int v) {
+  const unsigned long long full = static_cast<unsigned long long>(static_cast<long long>(res)) +
+                                  static_cast<unsigned long long>(pred);
+  return full != static_cast<unsigned long long>(static_cast<long long>(v));
+}
+
 template <int K>
 struct LpcLane {
   int w[K];  // the K newest restored samples; between groups w[0] is the newest
   int c[K];
   int order, block, left, right;
+  bool wrapped;  // a restored sample left int32 (its int64 value != the int32 stored)
 
   // Restores the K samples at p. Within the group the window rotates by
   // renaming: before sample s the newest is w[(K - s) % K], and sample s
@@ -98,11 +114,13 @@ struct LpcLane {
           const unsigned pred = __funnelshift_r(static_cast<unsigned>(acc),
                                                 static_cast<unsigned>(acc >> 32), right);
           v = static_cast<int>(static_cast<unsigned>(r[m]) + pred);
+          wrapped |= leaves_int32(r[m], static_cast<long long>(acc) >> right, v);
         } else {
           const long long pred = static_cast<long long>(acc << left) >> right;
-          v = s >= lo && s < hi
-                  ? static_cast<int>(static_cast<unsigned>(r[m]) + static_cast<unsigned>(pred))
+          const bool upd = s >= lo && s < hi;
+          v = upd ? static_cast<int>(static_cast<unsigned>(r[m]) + static_cast<unsigned>(pred))
                   : r[m];
+          wrapped |= upd && leaves_int32(r[m], pred, v);
         }
         w[K - 1 - s] = v;
         r[m] = v;
@@ -129,8 +147,8 @@ template <int K>
 __global__ void __launch_bounds__(aukit::ASYNC_LANES)
 lpc_restore_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__ orders,
                    const int32_t* __restrict__ shifts, const int32_t* __restrict__ blocks,
-                   const int32_t* __restrict__ coefs, int32_t* __restrict__ out, int lanes,
-                   long long T, int width) {
+                   const int32_t* __restrict__ coefs, int32_t* __restrict__ out,
+                   int32_t* __restrict__ wrapped, int lanes, long long T, int width) {
   const int lane = blockIdx.x * aukit::ASYNC_LANES + threadIdx.x;
   LpcLane<K> st{};
   if (lane < lanes) {
@@ -143,37 +161,85 @@ lpc_restore_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__
     for (int j = 0; j < K; ++j) st.c[j] = coefs[static_cast<long long>(lane) * K + j];
   }
   aukit::scan_rows_async(vals, out, lanes, T, width, st);
+  if (wrapped != nullptr && lane < lanes) wrapped[lane] = st.wrapped ? 1 : 0;
+}
+
+// The int64 restore of whole rows, one thread a row: v[i] += (sum_j c[j] *
+// v[i-1-j] << left) >> right for order <= i < block, every sum and product
+// wrapping in 64 bits as numpy's int64 restore does. Rows are read and
+// written in device memory, their newest samples out of the L1 cache.
+__global__ void lpc_restore_wide_kernel(const int64_t* __restrict__ vals,
+                                        const int32_t* __restrict__ orders,
+                                        const int32_t* __restrict__ shifts,
+                                        const int32_t* __restrict__ blocks,
+                                        const int32_t* __restrict__ coefs, int64_t* __restrict__ out,
+                                        int lanes, long long T, int K) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const int64_t* in = vals + static_cast<long long>(lane) * T;
+  int64_t* row = out + static_cast<long long>(lane) * T;
+  const int32_t* c = coefs + static_cast<long long>(lane) * K;
+  const int order = orders[lane], shift = shifts[lane];
+  const long long block = blocks[lane];
+  const int left = min(max(-shift, 0), 63), right = min(max(shift, 0), 63);
+  for (long long t = 0; t < T; ++t) {
+    unsigned long long v = static_cast<unsigned long long>(in[t]);
+    if (order > 0 && t >= order && t < block) {
+      unsigned long long acc = 0;
+      for (int j = 0; j < K && j < t; ++j) {
+        acc += static_cast<unsigned long long>(static_cast<long long>(c[j])) *
+               static_cast<unsigned long long>(row[t - 1 - j]);
+      }
+      v += static_cast<unsigned long long>(static_cast<long long>(acc << left) >> right);
+    }
+    row[t] = static_cast<int64_t>(v);
+  }
 }
 
 template <int K>
 void launch(const void* vals, const void* orders, const void* shifts, const void* blocks,
-            const void* coefs, void* out, int lanes, long long T, cudaStream_t stream) {
+            const void* coefs, void* out, void* wrapped, int lanes, long long T,
+            cudaStream_t stream) {
   // 32768 rows are 7.8 blocks per SM: their rings need the SM's whole shared memory
   cudaFuncSetAttribute(lpc_restore_kernel<K>, cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
   lpc_restore_kernel<K><<<aukit::async_blocks(lanes), aukit::ASYNC_LANES, 0, stream>>>(
       static_cast<const int32_t*>(vals), static_cast<const int32_t*>(orders),
       static_cast<const int32_t*>(shifts), static_cast<const int32_t*>(blocks),
-      static_cast<const int32_t*>(coefs), static_cast<int32_t*>(out), lanes, T,
-      aukit::copy_width(T, vals, out));
+      static_cast<const int32_t*>(coefs), static_cast<int32_t*>(out),
+      static_cast<int32_t*>(wrapped), lanes, T, aukit::copy_width(T, vals, out));
 }
 
 }  // namespace
 
 // vals/out i32[L,T]; orders, shifts, blocks i32[L]; coefs i32[L,K]
-// (coefficient j multiplies v[i-1-j]; 0 beyond the row's order); all
-// contiguous. K is 4, 8, 16 or 32. Returns cudaGetLastError() after the
-// launch (0 = launched), cudaErrorInvalidValue for any other K.
+// (coefficient j multiplies v[i-1-j]; 0 beyond the row's order); wrapped
+// i32[L] or null; all contiguous. K is 4, 8, 16 or 32. Returns
+// cudaGetLastError() after the launch (0 = launched),
+// cudaErrorInvalidValue for any other K.
 extern "C" int aukit_lpc_restore(const void* vals, const void* orders, const void* shifts,
-                                 const void* blocks, const void* coefs, void* out, int lanes,
-                                 long long T, int K, void* stream) {
+                                 const void* blocks, const void* coefs, void* out, void* wrapped,
+                                 int lanes, long long T, int K, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 4: launch<4>(vals, orders, shifts, blocks, coefs, out, lanes, T, s); break;
-    case 8: launch<8>(vals, orders, shifts, blocks, coefs, out, lanes, T, s); break;
-    case 16: launch<16>(vals, orders, shifts, blocks, coefs, out, lanes, T, s); break;
-    case 32: launch<32>(vals, orders, shifts, blocks, coefs, out, lanes, T, s); break;
+    case 4: launch<4>(vals, orders, shifts, blocks, coefs, out, wrapped, lanes, T, s); break;
+    case 8: launch<8>(vals, orders, shifts, blocks, coefs, out, wrapped, lanes, T, s); break;
+    case 16: launch<16>(vals, orders, shifts, blocks, coefs, out, wrapped, lanes, T, s); break;
+    case 32: launch<32>(vals, orders, shifts, blocks, coefs, out, wrapped, lanes, T, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vals/out i64[L,T]; the rest as aukit_lpc_restore's, with any K >= 1.
+extern "C" int aukit_lpc_restore_wide(const void* vals, const void* orders, const void* shifts,
+                                      const void* blocks, const void* coefs, void* out,
+                                      int lanes, long long T, int K, void* stream) {
+  constexpr int threads = 128;
+  lpc_restore_wide_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(vals), static_cast<const int32_t*>(orders),
+      static_cast<const int32_t*>(shifts), static_cast<const int32_t*>(blocks),
+      static_cast<const int32_t*>(coefs), static_cast<int64_t*>(out), lanes, T, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,5 +27,7 @@ def reset_counts() -> None:
     """Zero every kernel's launch count and every plain version's call count."""
     for fn in KERNELS:
         fn.launches = 0
+        if hasattr(fn, "wide_launches"):
+            fn.wide_launches = 0
     for fn in PLAIN:
         fn.calls = 0

@@ -43,7 +43,8 @@ _SIGNATURES = {
     "aukit_msadpcm_decode": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_qoa_lms": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "aukit_fma": (_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P),
-    "aukit_lpc_restore": (_P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
+    "aukit_lpc_restore": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
+    "aukit_lpc_restore_wide": (_P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
     "aukit_iir_zero": (_P, _P, ctypes.c_int, _LL, ctypes.c_float, ctypes.c_float, _P),
 }
 

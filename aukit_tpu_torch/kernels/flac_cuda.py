@@ -9,9 +9,14 @@ length ``int32[S]`` and coefficients ``int32[S, >= K]`` (coefficient j
 multiplies ``v[i-1-j]``). Both versions accumulate in int64: inside the
 Pallas limb kernel's exactness domain (``|v| < 2^25``, ``|c| <= 2^15``:
 every stream of depth <= 24) they equal it bit for bit; outside it they
-follow the int64 host restore, with each restored sample stored as int32.
-A tensor on the CPU goes to the plain version; a tensor on a CUDA device
-goes to the kernel, or the wrapper raises.
+follow the int64 host restore, with each restored sample stored as int32,
+and report in ``wrapped`` (int32[S], where given) the rows whose int32
+store differs from the int64 restore. Rows given as int64 are restored in
+int64 (the kernel's wide entry point): what a caller does with the rows
+reported wrapped, so that a malformed stream restores as the host's int64
+restore does, on the same device. A tensor on the CPU goes to the plain
+version; a tensor on a CUDA device goes to the kernel, or the wrapper
+raises.
 """
 
 from __future__ import annotations
@@ -30,8 +35,12 @@ def order_bucket(max_order: int) -> int:
     return next((k for k in ORDER_BUCKETS if max_order <= k), 32)
 
 
-def _check(vals, orders, shifts, blocks, coefs, K):
-    check_rows("vals", vals, torch.int32)
+def _check(vals, orders, shifts, blocks, coefs, K, wrapped=None):
+    check_rows("vals", vals, torch.int64 if vals.dtype == torch.int64 else torch.int32)
+    if wrapped is not None:
+        if vals.dtype != torch.int32:
+            raise ValueError("wrapped is reported for int32 rows only")
+        check_lane_vector("wrapped", wrapped, torch.int32, vals)
     for name, t in (("orders", orders), ("shifts", shifts), ("blocks", blocks)):
         check_lane_vector(name, t, torch.int32, vals)
     if coefs.dtype != torch.int32 or coefs.dim() != 2 or coefs.shape[0] != vals.shape[0] \
@@ -46,58 +55,84 @@ def _check(vals, orders, shifts, blocks, coefs, K):
     return K
 
 
-def lpc_restore_ref(vals, orders, shifts, blocks, coefs, K: int | None = None) -> torch.Tensor:
+def lpc_restore_ref(vals, orders, shifts, blocks, coefs, K: int | None = None,
+                    wrapped=None) -> torch.Tensor:
     """The restore as a torch loop over time, the rows vectorised in int64:
     ``v[i] += (sum_j c[j] v[i-1-j] << max(-shift, 0)) >> max(shift, 0)``
-    where ``0 < order <= i < block``; the sum of int32 results wraps."""
+    where ``0 < order <= i < block``. int32 rows store each result wrapped
+    to int32 (and set ``wrapped[row]`` to whether any differs from its
+    int64 value); int64 rows keep it."""
     lpc_restore_ref.calls += 1
-    K = _check(vals, orders, shifts, blocks, coefs, K)
+    K = _check(vals, orders, shifts, blocks, coefs, K, wrapped)
     out = vals.clone()
     S, T = out.shape
-    if S == 0 or T == 0:
-        return out
-    c = coefs[:, :K].to(torch.int64)
-    left = (-shifts).clamp(0, 63).to(torch.int64)
-    right = shifts.clamp(0, 63).to(torch.int64)
-    live = orders > 0
-    for i in range(1, T):
-        o = min(i, K)
-        window = out[:, i - o: i].flip(1).to(torch.int64)  # newest first
-        pred = ((window * c[:, :o]).sum(1) << left) >> right
-        upd = live & (i >= orders) & (i < blocks)
-        out[:, i] = torch.where(upd, (out[:, i] + pred).to(torch.int32), out[:, i])
+    bad = torch.zeros(S, dtype=torch.bool, device=vals.device)
+    if S and T:
+        c = coefs[:, :K].to(torch.int64)
+        left = (-shifts).clamp(0, 63).to(torch.int64)
+        right = shifts.clamp(0, 63).to(torch.int64)
+        live = orders > 0
+        for i in range(1, T):
+            o = min(i, K)
+            window = out[:, i - o: i].flip(1).to(torch.int64)  # newest first
+            pred = ((window * c[:, :o]).sum(1) << left) >> right
+            upd = live & (i >= orders) & (i < blocks)
+            full = out[:, i].to(torch.int64) + pred
+            stored = full.to(out.dtype)
+            bad |= upd & (stored.to(torch.int64) != full)
+            out[:, i] = torch.where(upd, stored, out[:, i])
+    if wrapped is not None:
+        wrapped.copy_(bad.to(torch.int32))
     return out
 
 
 lpc_restore_ref.calls = 0
 
 
-def lpc_restore_kernel(vals, orders, shifts, blocks, coefs, K: int | None = None) -> torch.Tensor:
+def lpc_restore_kernel(vals, orders, shifts, blocks, coefs, K: int | None = None,
+                       wrapped=None) -> torch.Tensor:
     """int32[S, T] warmup + residuals -> int32[S, T] restored samples. The
     CUDA kernel ``aukit_lpc_restore`` replaces ``lpc_restore_grouped``
     (aukit_tpu/kernels/flac_pallas.py:131). ``K`` is the tap count (4, 8,
     16 or 32, at least the batch's maximum order); without it the wrapper
-    reads the orders, which on a card waits for the device."""
+    reads the orders, which on a card waits for the device. ``wrapped``
+    (int32[S]): the kernel writes 1 for each row whose int32 store differs
+    from its int64 restore, else 0. int64 rows -> int64 rows, restored by
+    the wide entry point ``aukit_lpc_restore_wide``."""
     if vals.device.type == "cpu":
-        return lpc_restore_ref(vals, orders, shifts, blocks, coefs, K)
-    K = _check(vals, orders, shifts, blocks, coefs, K)
+        return lpc_restore_ref(vals, orders, shifts, blocks, coefs, K, wrapped)
+    K = _check(vals, orders, shifts, blocks, coefs, K, wrapped)
     if not vals.is_contiguous():
         raise ValueError("vals must be contiguous")
     S, T = vals.shape
     out = torch.empty_like(vals)
     if S == 0 or T == 0:
+        if wrapped is not None:
+            wrapped.zero_()
         return out
     taps = coefs[:, :K].contiguous()
+    lib = _build.load()
     with torch.cuda.device(vals.device):
-        rc = _build.load().aukit_lpc_restore(
-            vals.data_ptr(), orders.data_ptr(), shifts.data_ptr(), blocks.data_ptr(),
-            taps.data_ptr(), out.data_ptr(), S, T, K, stream_of(vals))
-    _build.check(rc, "aukit_lpc_restore")
+        if vals.dtype == torch.int64:
+            name = "aukit_lpc_restore_wide"
+            rc = lib.aukit_lpc_restore_wide(
+                vals.data_ptr(), orders.data_ptr(), shifts.data_ptr(), blocks.data_ptr(),
+                taps.data_ptr(), out.data_ptr(), S, T, K, stream_of(vals))
+        else:
+            name = "aukit_lpc_restore"
+            rc = lib.aukit_lpc_restore(
+                vals.data_ptr(), orders.data_ptr(), shifts.data_ptr(), blocks.data_ptr(),
+                taps.data_ptr(), out.data_ptr(), None if wrapped is None else wrapped.data_ptr(),
+                S, T, K, stream_of(vals))
+    _build.check(rc, name)
     lpc_restore_kernel.launches += 1
+    if vals.dtype == torch.int64:
+        lpc_restore_kernel.wide_launches += 1
     return out
 
 
 lpc_restore_kernel.launches = 0
+lpc_restore_kernel.wide_launches = 0  # of them, the int64 rows' (malformed streams only)
 
 KERNELS = (lpc_restore_kernel,)
 PLAIN = (lpc_restore_ref,)

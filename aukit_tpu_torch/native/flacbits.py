@@ -1,8 +1,10 @@
 """ctypes bindings for the native FLAC bitstream parser (``native/flacbits.cpp``)
 — the entry points of ``aukit_tpu.native.flacbits`` that the FLAC fleet calls,
-the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with, and
-the host DFPWM encode and QOA LMS, the routes the JAX package takes for a
-whole file (``chip_smoke.py`` times the kernels against them).
+the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with and
+``DfpwmStreamDecoder`` routes host bytes through, the host DFPWM encode and
+QOA LMS, the routes the JAX package takes for a whole file (``chip_smoke.py``
+times the kernels against them), and the stream iterators' PCM unpack and
+fused chunk DSP (``pcm_frames``, ``chunk_dsp``).
 
 At first use the repository's ``native/flacbits.cpp`` is compiled by g++ with
 the JAX package's loader's flags into ``aukit_tpu_torch/_build/`` (the file
@@ -96,6 +98,13 @@ def _load():
     lib.dfpwm_encode_rows.argtypes = [_I32P, ctypes.c_int64, ctypes.c_int64, _I32P, _U8P]
     lib.qoa_lms.restype = None
     lib.qoa_lms.argtypes = [_I32P, _I32P, _I32P, _I32P, ctypes.c_int64, ctypes.c_int64]
+    lib.pcm_frames.restype = ctypes.c_int64
+    lib.pcm_frames.argtypes = [ctypes.c_char_p, ctypes.c_int64] + [ctypes.c_int32] * 5 + [_F64P]
+    lib.chunk_dsp.restype = None
+    lib.chunk_dsp.argtypes = [
+        _F64P, ctypes.c_int64, ctypes.c_int64, _I64P, _F64P, _U8P, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_double, ctypes.c_double, ctypes.c_int32,
+        ctypes.c_double, _F64P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _F64P]
     return lib
 
 
@@ -258,3 +267,48 @@ def qoa_lms(dequantized: np.ndarray, history: np.ndarray, weights: np.ndarray):
     lib.qoa_lms(dq.ctypes.data_as(_I32P), out.ctypes.data_as(_I32P),
                 hist.ctypes.data_as(_I32P), wts.ctypes.data_as(_I32P), L, T)
     return out, hist, wts
+
+
+_PCM_TYPE = {"signed": 0, "unsigned": 1, "float": 2}
+
+
+def pcm_frames(raw: bytes, bit_depth: int, data_type: str, big_endian: bool,
+               channels: int, mono: bool) -> np.ndarray:
+    """One-pass unpack + normalize (+mono mean) -> float64[C_out, k].
+    Bit-identical to the staged unpack_pcm/normalize_pcm/mean pipeline."""
+    lib = _lib()
+    bpf = (bit_depth // 8) * channels
+    k = len(raw) // bpf
+    c_out = 1 if (mono and channels > 1) else channels
+    out = np.empty((c_out, k), np.float64)
+    lib.pcm_frames(raw, len(raw), bit_depth, _PCM_TYPE[data_type], 1 if big_endian else 0,
+                   channels, 1 if (mono and channels > 1) else 0, out.ctypes.data_as(_F64P))
+    return out
+
+
+def chunk_dsp(ext: np.ndarray, ffx: np.ndarray, frac: np.ndarray, exact: np.ndarray,
+              out_len: int, mode: str, interp_clamp, lowpass: bool, alpha: float,
+              filter_state: np.ndarray, zero_state_after: bool,
+              scale_int8: bool, floor_output: bool):
+    """Fused gather+lerp+FIR+scale for the 'none'/'linear' stream modes —
+    float64 ops in the numpy oracle's exact order. Returns
+    (out f64[C, out_len], new_filter_state f64[C])."""
+    lib = _lib()
+    ext = np.ascontiguousarray(ext, np.float64)
+    C, n_ext = ext.shape
+    ffx = np.ascontiguousarray(ffx[:out_len], np.int64)
+    frac = np.ascontiguousarray(frac[:out_len], np.float64)
+    exact_u8 = np.ascontiguousarray(exact[:out_len], np.uint8)
+    fs = np.ascontiguousarray(filter_state, np.float64).copy()
+    out = np.empty((C, out_len), np.float64)
+    lib.chunk_dsp(
+        ext.ctypes.data_as(_F64P), C, n_ext, ffx.ctypes.data_as(_I64P),
+        frac.ctypes.data_as(_F64P), exact_u8.ctypes.data_as(_U8P), out_len,
+        0 if mode == "none" else 1,
+        0 if interp_clamp is None else 1,
+        0.0 if interp_clamp is None else float(interp_clamp[0]),
+        0.0 if interp_clamp is None else float(interp_clamp[1]),
+        1 if lowpass else 0, float(alpha), fs.ctypes.data_as(_F64P),
+        1 if zero_state_after else 0, 1 if scale_int8 else 0,
+        1 if floor_output else 0, out.ctypes.data_as(_F64P))
+    return out, fs

@@ -573,6 +573,20 @@ class _Group:
         return window, had_real
 
 
+def engine_device(device, mesh, use_pallas, who: str) -> torch.device:
+    """An engine's device, with the JAX package's ``mesh`` and
+    ``use_pallas`` slots: a mesh is not ported, and ``use_pallas=False`` (the
+    plain versions) is refused on a card."""
+    if mesh is not None:
+        raise NotImplementedError(f"{who}(mesh=...) is not ported to aukit_tpu_torch yet "
+                                  "(ROADMAP.md queue 1, 'Multi-GPU')")
+    device = require_device(device, who)
+    if use_pallas is False and device.type == "cuda":
+        raise ValueError(f"{who}(use_pallas=False): on a card the port launches its CUDA "
+                         "kernels; pass device='cpu' for their plain versions")
+    return device
+
+
 class BatchStreamEngine:
     """Fixed-lane batched decoder of any ``LaneSpec`` codec to 48 kHz int8,
     on one device.
@@ -580,8 +594,10 @@ class BatchStreamEngine:
     Parameters
     ----------
     specs : one LaneSpec per lane (lanes with equal specs share a group)
-    device : torch device the decode runs on; "cuda" (the default) raises
-        at construction when no CUDA device is present
+    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1, "Multi-GPU")
+    use_pallas : the JAX package's kernel switch; None or True launch the
+        CUDA kernels on a card (their plain versions on the CPU), False runs
+        the plain versions and is refused on a card
     mono : True (default) mixes every lane to mono windows ``int8[L, T]``;
         False keeps the decoded channels: windows become ``int8[L, C, T]``
         with C the fleet's largest channel count, and lanes with fewer
@@ -591,14 +607,17 @@ class BatchStreamEngine:
         True forces the windowed contract even for a single group
     interpolation : resample mode override (none/linear/cubic/sinc); None
         reads CONFIG.default_interpolation at construction
+    device : keyword only: torch device the decode runs on; "cuda" (the
+        default) raises at construction when no CUDA device is present
     """
 
-    def __init__(self, specs: Sequence[LaneSpec], device="cuda", mono: bool = True,
-                 windowed: bool | None = None, interpolation: str | None = None):
+    def __init__(self, specs: Sequence[LaneSpec], mesh=None, use_pallas: bool | None = None,
+                 mono: bool = True, windowed: bool | None = None,
+                 interpolation: str | None = None, *, device="cuda"):
         specs = list(specs)
         if not specs:
             raise ValueError("need at least one lane")
-        self.device = device = require_device(device, "BatchStreamEngine")
+        self.device = device = engine_device(device, mesh, use_pallas, "BatchStreamEngine")
         self.lanes = len(specs)
         self.specs = specs
         self.mono = mono
@@ -901,9 +920,10 @@ class BatchDfpwmDecoder(BatchStreamEngine):
     per step."""
 
     def __init__(self, lanes: int, sample_rate: int = 48000, chunk_bytes: int = 6000,
-                 codec: str = "dfpwm", device="cuda"):
+                 mesh=None, use_pallas: bool | None = None, codec: str = "dfpwm", *,
+                 device="cuda"):
         spec = LaneSpec(codec, sample_rate, 1, chunk_bytes=chunk_bytes)
-        super().__init__([spec] * lanes, device=device)
+        super().__init__([spec] * lanes, mesh, use_pallas, device=device)
         self.sample_rate = sample_rate
         self.chunk_bytes = chunk_bytes
         self.codec = codec

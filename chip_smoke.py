@@ -14,12 +14,14 @@ the six main paths at full width (the batched DFPWM -> 48 kHz int8 engine, a
 mono and stereo PCM16 into DFPWM and PCM16, the auplay DSP chain on 16384
 PCM16 lanes, a 3072-station Fleet of FLAC, DFPWM and IMA-in-WAV, auplay's
 whole-file preload chain on 3-minute tracks in every container and a
-60-minute WAV, and bench.py config 5's effects chain on 64 channels of 180 s
-with every other effect on a stereo track), and times the kernels, each
-beside its bound on the card, also at the whole-file loaders' shapes. Each
-phase prints one line; any failure raises, so the exit code is non-zero and
-the closing result line is not printed. It exits
-non-zero at once without a CUDA device.
+60-minute WAV, bench.py config 5's effects chain on 64 channels of 180 s
+with every other effect on a stereo track, and every single-stream iterator
+over those 3-minute files with stream.pcm's device twin on the card), and
+times the kernels, each beside its bound on the card, also at the
+whole-file loaders' and the iterators' shapes. Each phase prints its lines
+(and its seconds on the closing ``[phase_seconds]`` line); any failure
+raises, so the exit code is non-zero and the closing result line is not
+printed. It exits non-zero at once without a CUDA device.
 Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
 struct only), tests/torch_kernel_cases.py and tests/torch_tracks.py (both
 numpy, torch and aukit_tpu_torch only), each by path.
@@ -27,6 +29,8 @@ numpy, torch and aukit_tpu_torch only), each by path.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import importlib.util
 import json
 import re
@@ -60,6 +64,7 @@ from aukit_tpu_torch.ops.resample import resample_plan
 from aukit_tpu_torch.parallel.pipeline import fir_alpha
 from aukit_tpu_torch.stream import batch as sb
 from aukit_tpu_torch.stream import batch_codecs as bc
+from aukit_tpu_torch.stream import engine as sengine
 from aukit_tpu_torch.stream import flac_fleet as ff
 from aukit_tpu_torch.stream.batch_encode import ENCODE_CODECS
 
@@ -112,6 +117,25 @@ def timing(name: str, ms: float, plain_ms: float, ops: float, nbytes: float,
         share_of_bound=round(b / ms, 4), library_ms=library_ms)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": library_ms}
+
+
+PHASE_SECONDS: dict = {}
+
+
+def phase(fn):
+    """Adds each call's seconds to ``PHASE_SECONDS`` under the function's
+    name (the ``[phase_seconds]`` line; a phase's seconds include those of
+    a phase it calls: transcode's include transcode_breakdown's)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            name = fn.__name__.removeprefix("phase_")
+            PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0,
+                                        1)
+    return run
 
 
 def check(ok: bool, what: str) -> None:
@@ -189,6 +213,7 @@ def same(a, b) -> tuple[bool, int]:
     return err == 0, err
 
 
+@phase
 def encoded_tones(lanes: int, seconds: float, seed: int):
     """Realistic DFPWM streams: one tone per lane (110-2000 Hz, 48 kHz),
     encoded on the card by the plain encoder (kernel (c)'s plain version,
@@ -221,6 +246,7 @@ def load_test_module(stem: str):
     return mod
 
 
+@phase
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -261,6 +287,7 @@ def kernel_resources(log: str) -> dict:
     return out
 
 
+@phase
 def phase_build() -> None:
     """The CUDA kernels (one nvcc per source, in parallel) and the native
     FLAC parser (g++), both from the checkout."""
@@ -276,6 +303,7 @@ def phase_build() -> None:
         spills=json.dumps(spilled))
 
 
+@phase
 def phase_golden() -> None:
     golden = np.load(ROOT / "tests" / "golden" / "golden.npz")
     lanes = 4096
@@ -287,6 +315,7 @@ def phase_golden() -> None:
     check(ok, "decode kernel == golden.npz dfpwm_out")
 
 
+@phase
 def phase_kernel_vs_plain() -> dict:
     """Both kernels against their plain versions on the same CUDA tensors:
     32768 lanes, 512 bytes, two chained calls, a lane mask, with and without a
@@ -374,6 +403,7 @@ def decode_kernel_cases(cases) -> dict:
     return found
 
 
+@phase
 def phase_redesigned_kernel_paths() -> dict:
     """Every path of the kernels redesigned for Hopper, (a) to (h), against
     their plain versions on the same CUDA tensors, max |error| 0, on the
@@ -422,12 +452,24 @@ def phase_redesigned_kernel_paths() -> dict:
     say("kernel_vs_plain_paths", kernel="dfpwm_decode_dsp", also="dfpwm_decode",
         cases=json.dumps(names), out_equal=True, state_equal=True)
     names = []
+    wrapped_rows = 0
     for name, args, K in cases.lpc_cases("cuda"):
         ok, err = same(kg.lpc_restore_kernel(*args, K), kg.lpc_restore_ref(*args, K))
-        errs["lpc_restore"] = max(errs["lpc_restore"], err)
-        check(ok, f"lpc_restore kernel == plain on case {name}")
+        # the same rows with the wrapped rows reported (the random predictors
+        # of most cases are unstable), and as int64 rows (the wide entry point)
+        flags = [torch.full((args[0].shape[0],), 7, dtype=torch.int32, device=CARD)
+                 for _ in range(2)]
+        ok_w, err_w = same((kg.lpc_restore_kernel(*args, K, wrapped=flags[0]), flags[0]),
+                           (kg.lpc_restore_ref(*args, K, wrapped=flags[1]), flags[1]))
+        wide = (args[0].to(torch.int64).contiguous(), *args[1:])
+        ok_l, err_l = same(kg.lpc_restore_kernel(*wide, K), kg.lpc_restore_ref(*wide, K))
+        wrapped_rows += int(flags[0].sum())
+        errs["lpc_restore"] = max(errs["lpc_restore"], err, err_w, err_l)
+        check(ok and ok_w and ok_l,
+              f"lpc_restore kernel == plain on case {name} (rows, wrapped rows, int64 rows)")
         names.append(name)
-    say("kernel_vs_plain_paths", kernel="lpc_restore", cases=json.dumps(names), out_equal=True)
+    say("kernel_vs_plain_paths", kernel="lpc_restore", cases=json.dumps(names), out_equal=True,
+        wrapped_equal=True, wide_equal=True, wrapped_rows=wrapped_rows)
     names = []
     for name, calls, st in cases.encode_cases("cuda"):
         ref_st = st
@@ -475,6 +517,7 @@ def phase_redesigned_kernel_paths() -> dict:
     return errs
 
 
+@phase
 def phase_kernel_vs_plain_main_shapes(tones: torch.Tensor) -> tuple[dict, dict]:
     """Each kernel against its plain version at the shapes the main path
     gives it, on the bytes the main path decodes, every lane compared: the
@@ -564,6 +607,7 @@ def compare_engines(name: str, cuda_eng, cpu_eng, feeds, subset, volumes) -> Non
         steps=n, equal=True)
 
 
+@phase
 def phase_engines(tones: torch.Tensor) -> None:
     host = np.tile(tones[:4096].cpu().numpy(), (1, 3))  # 3 s per lane
     rng = np.random.default_rng(5)
@@ -589,6 +633,7 @@ def phase_engines(tones: torch.Tensor) -> None:
     check(kc.dfpwm_decode_kernel.launches > launches, "decode kernel ran on the 32 kHz group")
 
 
+@phase
 def phase_main_path(tones: torch.Tensor, levels: torch.Tensor) -> dict:
     """The main path at full width, through the engine's entry points:
     32768 identity-rate lanes, then a 32768-lane fleet at 48000 and 32000 Hz.
@@ -672,6 +717,7 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
+@phase
 def phase_step_breakdown(tones: torch.Tensor) -> None:
     """Where the time of one full-width identity_48k step goes: the step fed
     from host memory (as in main_path) and fed from the card, the host
@@ -727,6 +773,7 @@ def phase_step_breakdown(tones: torch.Tensor) -> None:
         busy_with_copies=round(busy_ms(kernels + copies) / wall, 4))
 
 
+@phase
 def phase_mixed_step_breakdown(tones: torch.Tensor) -> None:
     """Where the time of one full-width mixed_48k_32k step goes (half the
     lanes at 32 kHz: kernel (a), then dsp_chain's resample through the FMA
@@ -783,6 +830,7 @@ def phase_mixed_step_breakdown(tones: torch.Tensor) -> None:
     torch.cuda.empty_cache()
 
 
+@phase
 def phase_times() -> None:
     """Kernel (a) at bench.py's headline shape, and both kernels against their
     plain versions at 32768 x 512 bytes (CUDA events; the series kept since
@@ -910,6 +958,7 @@ def block_kernel_call(rng, name: str, lanes: int, T: int):
     return lambda: bc.BLOCK_KERNELS[name][1](x, *state, *extra)
 
 
+@phase
 def phase_block_kernel_vs_plain() -> dict:
     """Kernels (d), (e), (f) against their plain versions on the same CUDA
     tensors: 32768 lanes, two chained calls from a non-zero state, outputs
@@ -1045,6 +1094,7 @@ def fed_block_engine(specs, groups) -> tuple[BatchStreamEngine, float]:
     return eng, time.perf_counter() - t0
 
 
+@phase
 def phase_block_fleet(specs, groups) -> tuple[dict, dict]:
     """The block-codec main path at full width, through the engine's entry
     points: one heterogeneous 32768-lane BatchStreamEngine, 3 s per lane,
@@ -1138,6 +1188,7 @@ def phase_block_fleet(specs, groups) -> tuple[dict, dict]:
     return launches, errs
 
 
+@phase
 def phase_block_step_breakdown(specs, groups) -> None:
     """Where the time of one block-fleet window goes: a fresh engine over
     the same bytes steps once (allocations), then one window under
@@ -1205,6 +1256,7 @@ def block_feeds(rng, lanes: int):
     return specs, feeds
 
 
+@phase
 def phase_block_engines() -> None:
     """The CUDA engine against the CPU engine on a 4096-lane block fleet
     with ragged EOF tails, QOA short final frames and volume ramps: 64
@@ -1220,6 +1272,7 @@ def phase_block_engines() -> None:
                     feeds, subset, vols)
 
 
+@phase
 def phase_block_times() -> dict:
     """Kernels (d), (e), (f) against their plain versions at bench.py's TPU
     shapes (IMA and MS ADPCM 16384 lanes x 8192 samples, QOA 16384 x 5120),
@@ -1288,7 +1341,7 @@ FLAC_LANES = 2048  # one fleet: 1024 lanes of bench.py config 7's stream, 1024 s
 FLAC_SECONDS = 8
 FLAC_DRIP = 1 << 17  # bytes per lane per step (bench.py:558)
 FLAC_N = 4096  # block size (bench.py:370; flac -5)
-FLAC_CHECK_LANES = 64
+FLAC_CHECK_LANES = 32  # each geometry 8 times: the CPU fleets run the plain loops
 LPC8 = [120, -60, 30, -15, 8, -4, 2, -1]  # bench.py:371: order 8, shift 9
 LPC_ROWS = 32768  # kernel (g)'s profile shape (flac_pallas.py:47-49): 32768 rows x 4096
 LPC_FLEET_ROWS = 7168  # the restore batch of one step of the 2048-lane fleet
@@ -1416,6 +1469,7 @@ def flac_steps_diff(a, b) -> float:
     return err
 
 
+@phase
 def phase_flac_kernel_vs_plain() -> dict:
     """Kernels (g) and (h) against their plain versions on the same CUDA
     tensors, max |error| 0: small ragged shapes (every tap bucket K, shifts
@@ -1500,9 +1554,10 @@ def iir_args(rng, rows: int, T: int) -> tuple:
     return x, fir_alpha(44100, 48000)
 
 
+@phase
 def phase_flac_engines(fx) -> None:
     """The CUDA FLAC fleet against the same fleet on the CPU (the kernels'
-    plain versions) on a ragged 64-lane fleet of four geometries, volume
+    plain versions) on a ragged fleet of FLAC_CHECK_LANES lanes in four geometries, volume
     ramps in flight: windows, masks, positions and checkpoints bit-equal,
     and within the reference's 5e-3 of the host route. The device-resident
     route in all four interpolation modes and with mono=False, and the
@@ -1554,6 +1609,7 @@ def feed_step(fleet, streams, off: int, drip: int) -> None:
             fleet.feed(lane, cut[key])
 
 
+@phase
 def phase_flac_fleet(streams) -> dict:
     """The FLAC main path at full width, through the fleet's entry points:
     2048 drip-fed lanes, FLAC_SECONDS each, FLAC_DRIP bytes per lane per
@@ -1614,6 +1670,7 @@ def phase_flac_fleet(streams) -> dict:
     return launches
 
 
+@phase
 def phase_flac_step_breakdown(streams) -> dict:
     """Where the time of one FLAC fleet step goes: a fresh fleet steps once
     on one drip (allocations; the arguments of kernels (g) and (h) are kept),
@@ -1705,6 +1762,7 @@ def phase_flac_step_breakdown(streams) -> dict:
     return errs
 
 
+@phase
 def phase_flac_times() -> dict:
     """Kernels (g) and (h) against their plain versions at the main shapes
     (32768 x 4096; (g) at order 8), by CUDA events, in turns kernel, plain,
@@ -1756,7 +1814,7 @@ def phase_flac_times() -> dict:
 TRANSCODE_MONO = 16384  # 48 kHz mono PCM16 lanes (bench.py:670-688's stream at fleet width)
 TRANSCODE_STEREO = 8192  # 44.1 kHz stereo PCM16 lanes
 TRANSCODE_SECONDS = 3
-TRANSCODE_CHECK = 4  # lanes of each kind that the CPU engines transcode too
+TRANSCODE_CHECK = 2  # lanes of each kind that the CPU engines transcode too: the first and last
 ENCODE_CHECK_LANES = 512  # lanes of the 48000-sample kernel-vs-plain case from a random state
 
 
@@ -1769,6 +1827,7 @@ def rail_levels(rng, lanes: int, n: int) -> torch.Tensor:
     return torch.tensor(levels, device="cuda")
 
 
+@phase
 def phase_encode_kernel_vs_plain(tones: torch.Tensor, levels: torch.Tensor) -> int:
     """Kernel (c) against its plain version on the same CUDA tensors, bytes
     and state, max |error| 0: small ragged shapes from a random state with
@@ -1883,6 +1942,7 @@ def run_transcode(device: str, mono_rows, stereo_rows, pick_m, pick_s):
     return steps, first, engines
 
 
+@phase
 def phase_transcode() -> dict:
     """The write path at full width, through the engines' entry points:
     16384 mono PCM16 lanes at 48 kHz and 8192 stereo PCM16 lanes at 44.1 kHz,
@@ -1968,6 +2028,7 @@ def phase_transcode() -> dict:
     return launches
 
 
+@phase
 def phase_transcode_breakdown(mono_rows, stereo_rows) -> None:
     """Where the time of one transcode window goes: fresh engines over the
     same bytes step once (allocations), then one window under torch.profiler:
@@ -2053,6 +2114,7 @@ def encode_fleet_run(device: str, specs, sigs, wins):
     return steps, [enc.checkpoint(i) for i in range(len(specs))]
 
 
+@phase
 def phase_encode_engines() -> None:
     """The CUDA encode engine against the CPU engine: every encode codec,
     mono and stereo, 16 lanes each: bytes, nbytes, masks, positions and
@@ -2076,6 +2138,7 @@ def phase_encode_engines() -> None:
             codecs=json.dumps(ENCODE_CODECS), equal=True)
 
 
+@phase
 def phase_flac_transcode(fx) -> None:
     """FLAC -> WAV16 through ``transcode_fleet``: eight ragged FLAC lanes of
     four geometries on the device-resident route (kernels (g), (h) upstream
@@ -2100,6 +2163,7 @@ def phase_flac_transcode(fx) -> None:
     say("flac_transcode", lanes=len(streams), bytes=sum(map(len, outs[0])), equal_cpu=True)
 
 
+@phase
 def phase_encode_time(plain_ms: float) -> dict:
     """Kernel (c) alone at 32768 x 48000 levels (one second of every lane of
     the headline fleet), by CUDA events; ``plain_ms`` is its plain version's
@@ -2168,6 +2232,7 @@ def steps_equal(a, b) -> bool:
         for x, y in zip(a, b))
 
 
+@phase
 def phase_engine_dsp() -> None:
     """The auplay chain on a mono=False engine at a small width, CUDA against
     CPU (tests/torch_kernel_cases.py's ``engine_dsp_fleet``: DFPWM at 48 and
@@ -2289,6 +2354,7 @@ def auplay_fma_vs_plain(host: np.ndarray) -> float:
     return max(scan_err, errs[0])
 
 
+@phase
 def phase_auplay_main_path() -> tuple[dict, float]:
     """bench.py:510-541's config 6b at AUPLAY_LANES pcm16 lanes, 48 kHz, 3 s a
     lane, lowpass(12 kHz) on every lane, normalize(0.8) with its measuring
@@ -2377,6 +2443,7 @@ def events_ms(spans) -> float:
     return sum(s.elapsed_time(e) for s, e in spans)
 
 
+@phase
 def phase_auplay_step_breakdown() -> None:
     """Where one full-width auplay step goes (normalize done before): the
     step fed from host memory and from the card; on one device-fed step, by
@@ -2552,6 +2619,7 @@ def drive_fleet_check(fleet) -> tuple[list, list, list]:
     return steps, landings, [fleet.checkpoint(i) for i in range(len(fleet.stations))]
 
 
+@phase
 def phase_fleet_check() -> dict:
     """The Fleet facade at FLEET_CHECK_STATIONS stations (mono=False, two
     channels; FLAC stations on the device route), CUDA against CPU: the
@@ -2604,6 +2672,7 @@ def fleet_main_sources(fx):
     return [(fl, df, wav)[i % 3] for i in range(FLEET_STATIONS)]
 
 
+@phase
 def phase_fleet_main_path() -> dict:
     """The Fleet facade at full width (bench.py:600-640's mix at
     FLEET_STATIONS stations, FLAC on the device route): construction
@@ -2777,9 +2846,11 @@ def whole_file_tracks(tracks, seconds: float) -> list:
     ]
 
 
-# the whole-file surface's FMA call sites: the scan, the resampler, the
-# effects' feedback and allpass blocks
-FMA_SITES = ((oscan, "fma_kernel"), (ores, "fma"), (tfx, "fma_kernel"))
+# the FMA call sites of the whole-file surface and the stream iterators: the
+# scan, the resampler, the effects' feedback and allpass blocks, the
+# ChunkResampler's device twin
+FMA_SITES = ((oscan, "fma_kernel"), (ores, "fma"), (tfx, "fma_kernel"),
+             (sengine, "fma_kernel"))
 
 
 def fma_held_to_plain(run) -> tuple[int, float, tuple]:
@@ -2810,6 +2881,22 @@ def fma_held_to_plain(run) -> tuple[int, float, tuple]:
         for (m, n), fn in zip(FMA_SITES, saved):
             setattr(m, n, fn)
     return seen["n"], seen["err"], seen["shape"]
+
+
+def native_lpc_ms(args) -> float:
+    """The native host restore (``restore_lpc_flat``, the JAX package's host
+    route) over kernel (g)'s staged rows ``args`` (vals, orders, shifts,
+    blocks, coefs[, K]), timed alone: its flat values, offsets and
+    coefficients in 32 columns, as it reads them, are made first."""
+    vals, orders, shifts, blocks, coefs = (a.cpu().numpy() for a in args[:5])
+    keep = np.arange(vals.shape[1])[None, :] < blocks[:, None]
+    flat = vals[keep].astype(np.int64)
+    offs = np.concatenate([[0], np.cumsum(blocks)])[:-1]
+    taps = np.zeros((len(blocks), 32), np.int64)
+    taps[:, :coefs.shape[1]] = coefs
+    t0 = time.perf_counter()
+    flacbits.restore_lpc_flat(flat, offs, blocks, orders, shifts, np.zeros_like(blocks), taps)
+    return (time.perf_counter() - t0) * 1e3
 
 
 def card_sync() -> None:
@@ -2853,6 +2940,7 @@ def auplay_chain(loader: str, raw: bytes, device: str, stages: dict | None = Non
     return audio, out.num_samples, chunks
 
 
+@phase
 def phase_whole_file() -> dict:
     """auplay's preload chain on the card over a 3-minute track in every
     container and a 60-minute PCM16 WAV (a podcast episode): each stage
@@ -2934,6 +3022,7 @@ def phase_whole_file() -> dict:
     return counts, fma_err
 
 
+@phase
 def whole_file_kernel_shapes() -> dict:
     """Kernels (a), (c), (d), (e), (f), (g) at the whole-file phase's launch
     shapes (tests/torch_kernel_cases.py ``whole_file_cases``, a 3-minute
@@ -3007,16 +3096,8 @@ def whole_file_kernel_shapes() -> dict:
                 flacbits.qoa_lms(dq, hist, wts)
                 native_ms = (time.perf_counter() - t0) * 1e3
             if kern == "lpc":
-                vals, orders, shifts, blocks, coefs, _ = (
-                    a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args)
-                keep = np.arange(T)[None, :] < blocks[:, None]
-                flat = vals[keep].astype(np.int64)
-                offs = np.concatenate([[0], np.cumsum(blocks)])[:-1]
-                t0 = time.perf_counter()
-                flacbits.restore_lpc_flat(flat, offs, blocks, orders, shifts,
-                                          np.zeros_like(blocks), coefs)
-                native_ms = (time.perf_counter() - t0) * 1e3
-                ops = int(blocks.sum()) * lpc_ops_per_sample(8)
+                native_ms = native_lpc_ms(args)
+                ops = int(args[3].sum()) * lpc_ops_per_sample(8)
                 nbytes = rows * T * 8
             else:
                 ops = rows * T * OPS_PER_SAMPLE[ops_key]
@@ -3055,6 +3136,7 @@ OTHER_EFFECTS = (("amplify", (1.3,)), ("speed", (1.25,)), ("fade", (1.0, 0.2, 1.
                  ("echo", (1.0, 0.5)), ("reverb", ()), ("highpass", (200,)))
 
 
+@phase
 def phase_effects_chain() -> dict:
     """bench.py config 5's chain on a 64-channel 44.1 kHz Audio of 180 s
     (2.0 GB a float32 tensor; bench.py: 2 s), made on the card from a seed,
@@ -3131,6 +3213,318 @@ def phase_effects_chain() -> dict:
     return counts, fma_err
 
 
+# the stream iterators over whole_file_tracks' files: (case, iterator, the
+# file's name in whole_file_tracks, positional arguments, keyword arguments)
+STREAM_ITERATORS = (
+    ("wav_pcm16", "wav", "wav_pcm16", (), {}),
+    ("wav_pcm16_mono", "wav", "wav_pcm16", (), {"mono": True}),
+    ("wav_ima", "wav", "wav_ima", (), {}),
+    ("wav_msadpcm", "wav", "wav_msadpcm", (), {}),
+    ("wav_dfpwm", "wav", "wav_dfpwm", (), {}),
+    ("aiff", "aiff", "aiff", (), {}),
+    ("au_ulaw", "au", "au_ulaw", (), {}),
+    ("flac", "flac", "flac", (), {}),
+    ("qoa", "qoa", "qoa", (), {}),
+    ("dfpwm", "dfpwm", "dfpwm", (48000, 1), {}),
+    ("mdfpwm", "mdfpwm", "mdfpwm", (), {}),
+    ("g711", "g711", "au_ulaw", (True, 2, 44100), {}),
+    ("pcm", "pcm", "wav_pcm16", (16, "signed", 2, 44100), {}),
+)
+# the iterators whose block decodes run on ``device`` (the others are host code)
+DEVICE_ITERATORS = ("wav", "dfpwm", "mdfpwm", "flac", "qoa")
+# the kernel each recorded block decode launches, and its row of OPS_PER_SAMPLE
+STREAM_KERNELS = {"ima": ("ima_decode", ka, "ima_decode_kernel"),
+                  "msadpcm": ("msadpcm_decode", ka, "msadpcm_decode_kernel"),
+                  "qoa": ("qoa_lms", kq, "qoa_lms_kernel"),
+                  "lpc": ("lpc_restore", kg, "lpc_restore_kernel")}
+TWIN_MODES = ("none", "linear", "cubic", "sinc")
+TWIN_CUT_SECONDS = 1  # the device twin's cut: its FMAs' plain version is slow on the CPU
+
+
+def stream_source(name: str, raw: bytes) -> bytes:
+    """What an iterator reads: the file, or for the raw ``g711`` and ``pcm``
+    streams the AU file's µ-law payload (after its 24-byte header) and the
+    WAV's PCM16 payload (after its 44-byte header)."""
+    return raw[24:] if name == "g711" else raw[44:] if name == "pcm" else raw
+
+
+def drain_stream(case, files: dict, device: str):
+    """One iterator of ``STREAM_ITERATORS`` drained to the end of its file
+    on ``device``: -> ([numpy chunks], seconds of audio by the positions)."""
+    name, fn, file, args, kw = case
+    extra = {"device": device} if fn in DEVICE_ITERATORS else {}
+    it, _ = getattr(tk.stream, fn)(stream_source(name, files[file]), *args, **kw, **extra)
+    chunks = [c for c, _ in it]
+    return chunks, sum(c.shape[1] for c in chunks) / 48000
+
+
+@contextlib.contextmanager
+def recorded_flac_restores():
+    """Within the block, the int64 samples every ``restore_and_decorrelate``
+    call returns (``stream.flac``'s restore of a batch of frames, [C, n]):
+    yields the list they are appended to."""
+    from aukit_tpu_torch.codecs import flac as tflac
+
+    fn, out = tflac.restore_and_decorrelate, []
+
+    def recording(*args, **kwargs):
+        out.append(fn(*args, **kwargs))
+        return out[-1]
+
+    tflac.restore_and_decorrelate = recording
+    try:
+        yield out
+    finally:
+        tflac.restore_and_decorrelate = fn
+
+
+def kernel_launch_ms(module, name: str, run) -> list:
+    """``run()`` with each launch of ``module.name`` timed by CUDA events
+    (these launches are not counted: the wrapper's count is not the
+    kernel's). -> [ms a launch]."""
+    fn, spans = getattr(module, name), []
+
+    def timed_kernel(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*args, **kwargs)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    timed_kernel.launches = timed_kernel.wide_launches = 0
+    setattr(module, name, timed_kernel)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in spans]
+
+
+def stream_call_work(kind: str, call) -> tuple[tuple, float, float]:
+    """((rows, T), operations, bytes) of one recorded block decode: its
+    kernel's rows, its samples times ``OPS_PER_SAMPLE`` (the LPC restore at
+    its call's tap count), and each input byte read and output byte written
+    once (kernel (g): the samples of each row's block, 4 bytes each way, 8
+    in a wide call)."""
+    args = call[0]
+    if kind == "lpc":
+        vals, blocks, K = args[0], args[3], args[5]
+        n = int(blocks.clamp(0, vals.shape[1]).sum())
+        return tuple(vals.shape), n * lpc_ops_per_sample(K), n * 2 * vals.element_size()
+    rows, T = np.shape(args[0])
+    per_sample = {"ima": 3, "msadpcm": 3, "qoa": 4}[kind]  # nibble or int16 in, int16 out
+    return (rows, T), rows * T * OPS_PER_SAMPLE[kind], rows * T * per_sample
+
+
+def stream_native_ms(kind: str, calls) -> float | None:
+    """The host route the JAX package takes for the same work, over every
+    recorded call: the native ``qoa_lms``; the native ``restore_lpc_flat``
+    over kernel (g)'s rows (``native_lpc_ms``); None for the ADPCM decodes
+    (the JAX package has no host route for them)."""
+    if kind == "lpc":
+        return sum(native_lpc_ms(args) for args, _, _ in calls)
+    if kind != "qoa":
+        return None
+    t0 = time.perf_counter()
+    for args, _, _ in calls:
+        flacbits.qoa_lms(*args)
+    return (time.perf_counter() - t0) * 1e3
+
+
+@phase
+def phase_stream_iterators() -> tuple[dict, dict]:
+    """The single-stream iterators on the card over whole_file_tracks' 3-minute
+    files (ROADMAP queue 1's former item 1): every iterator drained to the end
+    of its file, timed, with the kernels it launched. The block decodes they
+    made are recorded and replayed: each kernel's launches timed by CUDA
+    events, the first and the last call of each against the plain version on
+    the CPU, and (f), (g) against the native host routes. Lossless files
+    give their source: PCM WAV and AIFF the chunks of ``stream.pcm`` over
+    the samples, FLAC its restore, with no row of it wrapped in kernel (g)'s
+    int32 store. A broken FLAC stream whose rows do wrap (fault 3.3) takes
+    kernel (g)'s wide int64 calls, each held to the plain version. Each
+    kernel-backed iterator's chunks on the card equal its chunks on the CPU
+    over the first CUT_SECONDS of its file. Then the device twin (``stream.pcm`` over the track's values on the card,
+    int16 and float32, in all four modes) against the host oracle within the
+    reference's 2e-2, its FMA launches each held to ``fma_ref``, and bench.py
+    config 1 at its own size. -> (launches, max |error| by row of the
+    ``kernels`` line)."""
+    tracks = load_test_module("torch_tracks")
+    cases = load_test_module("torch_kernel_cases")
+    x = tracks.synth_track(WHOLE_SECONDS, 44100, seed=70)
+    full = whole_file_tracks(tracks, WHOLE_SECONDS)
+    files = {f[0]: f[2] for f in full}
+    flac_samples = tracks.flac_file(x, 44100)[1]
+    counts = {k: 0 for k in dsp_counts()}
+    recorded = {}
+    for case in STREAM_ITERATORS:
+        kernels.reset_counts()
+        with cases.recorded_stream_decodes() as calls, recorded_flac_restores() as restores:
+            t0 = time.perf_counter()
+            chunks, seconds = drain_stream(case, files, CARD)
+            dt = time.perf_counter() - t0
+        wide = kg.lpc_restore_kernel.wide_launches
+        launched = dsp_counts()
+        check(plain_calls() == 0, f"{case[0]}: no plain version on the card")
+        for k, v in launched.items():
+            counts[k] += v
+        for kind, made in calls.items():
+            if made:
+                recorded[case[0], kind] = made
+        say("stream_iterators", iterator=case[0], seconds_of_audio=round(seconds, 3),
+            chunks=len(chunks), wall_s=round(dt, 4), realtime_factor=round(seconds / dt, 1),
+            launches=json.dumps({k: v for k, v in launched.items() if v}))
+        check(seconds > WHOLE_SECONDS - 0.5 and all(np.isfinite(c).all() for c in chunks[-2:]),
+              f"{case[0]}: finite chunks to the end of the file")
+        if case[0] in ("wav_pcm16", "aiff"):
+            want = [c for c, _ in tk.stream.pcm(x.T.reshape(-1).tolist(), 16, "signed", 2,
+                                                44100)[0]]
+            check(len(chunks) == len(want) and all(np.array_equal(a, b) for a, b in
+                                                   zip(chunks, want)),
+                  f"{case[0]}: the chunks of stream.pcm over the source samples")
+        if case[0] == "flac":
+            check(np.array_equal(np.concatenate(restores, axis=1), flac_samples),
+                  "flac: restores its source samples")
+            check(wide == 0, "flac: no row of the valid file wrapped kernel (g)'s int32 store")
+        del chunks
+    # ROADMAP queue 3, fault 3.3: a broken FLAC stream whose unstable
+    # predictor leaves int32 (tests/torch_tracks.py's LPC track with byte 68
+    # set to 0). Kernel (g) reports the rows it wrapped and restores them
+    # again in int64 on the card (its wide entry point); the chunks equal
+    # the CPU's.
+    raw = tracks.flac_file(tracks.synth_track(0.5, 22050, 6), 22050, 3, 1024)[0]
+    broken = raw[:68] + b"\x00" + raw[69:]
+    kernels.reset_counts()
+    with cases.recorded_stream_decodes() as calls:
+        got = [c for c, _ in tk.stream.flac(broken, device=CARD)[0]]
+    wide = kg.lpc_restore_kernel.wide_launches
+    for k, v in dsp_counts().items():
+        counts[k] += v
+    recorded["flac_wrapping", "lpc"] = calls["lpc"]
+    want = [c for c, _ in tk.stream.flac(broken, device="cpu")[0]]
+    ok = len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+    say("stream_iterators", iterator="flac_wrapping", chunks=len(got),
+        lpc_calls=len(calls["lpc"]), wide_launches=wide, cuda_equals_cpu=ok)
+    check(wide > 0 and ok, "flac_wrapping: wrapped rows restored wide on the card, == the CPU")
+    expect = {"wav_ima": "ima_decode", "wav_msadpcm": "msadpcm_decode", "qoa": "qoa_lms",
+              "flac": "lpc_restore"}
+    check(all(counts[k] > 0 for k in expect.values()),
+          f"stream_iterators: kernels (d), (e), (f), (g) ran ({counts})")
+    errs = {}
+    for (name, kind), made in recorded.items():
+        row, module, fn_name = STREAM_KERNELS[kind]
+        t0 = sync_time()
+        launch_ms = kernel_launch_ms(module, fn_name,
+                                     lambda: [cases.replay(kind, c, CARD) for c in made])
+        replay_ms = (sync_time() - t0) * 1e3
+        native_ms = stream_native_ms(kind, made)
+        err = 0
+        for c in made if name == "flac_wrapping" else (made[0], made[-1]):
+            t0 = time.perf_counter()
+            plain = cases.replay(kind, c, "cpu")
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            diff = np.abs(np.asarray(plain, np.int64) - np.asarray(c[2], np.int64))
+            err = max(err, int(diff.max()) if diff.size else 0)
+        shapes, ops, nbytes = zip(*(stream_call_work(kind, c) for c in made))
+        ops, nbytes = sum(ops), sum(nbytes)
+        say("stream_kernel", iterator=name, kernel=row, calls=len(made),
+            largest_shape=json.dumps(list(max(shapes, key=np.prod))),
+            kernel_ms=round(sum(launch_ms), 4),
+            replay_with_copies_ms=round(replay_ms, 4),
+            native_host_ms=None if native_ms is None else round(native_ms, 4),
+            plain_ms_last_call=round(plain_ms, 2), equal_plain=err == 0)
+        timing(f"stream_{name}", sum(launch_ms), plain_ms, ops, nbytes)
+        errs[row] = max(errs.get(row, 0), err)
+        check(err == 0, f"{name}: kernel ({row}) == plain at the iterator's shapes")
+    del recorded, full, files
+    cut = {f[0]: f[2] for f in whole_file_tracks(tracks, CUT_SECONDS)}
+    for case in STREAM_ITERATORS:
+        if case[1] not in DEVICE_ITERATORS:
+            continue
+        got, _ = drain_stream(case, cut, CARD)
+        want, _ = drain_stream(case, cut, "cpu")
+        ok = len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+        # the DFPWM iterators decode on the host's native route on either
+        # device, as the JAX package routes them: their cut checks that
+        # routing, not kernel (a); the PCM WAV's is host code throughout
+        route = "kernel" if case[0] in expect else "native host" if "dfpwm" in case[0] else "host"
+        say("stream_cut", iterator=case[0], seconds=CUT_SECONDS, chunks=len(got), route=route,
+            cuda_equals_cpu=ok)
+        check(ok, f"{case[0]}: the card's chunks == the CPU's over a {CUT_SECONDS} s cut")
+    twin_counts, twin_err = stream_device_twin(x)
+    for k, v in twin_counts.items():
+        counts[k] += v
+    errs["fma"] = twin_err
+    sig = np.random.default_rng(0).integers(-20000, 20000, (2, 44100 * 20)).astype("<i2")
+    t0 = time.perf_counter()
+    n_out = sum(c.shape[1] for c, _ in tk.stream.pcm(sig.T.reshape(-1).tobytes(), 16, "signed",
+                                                     2, 44100, False, True)[0])
+    dt = time.perf_counter() - t0
+    say("stream_iterators", iterator="bench_config1_stream_pcm_wav16_mono", seconds_of_audio=20,
+        out_samples=n_out, wall_s=round(dt, 4), realtime_factor=round(n_out / dt / 48000, 1))
+    say("stream_launches", launches=json.dumps(counts))
+    return counts, errs
+
+
+def stream_device_twin(x: np.ndarray) -> tuple[dict, float]:
+    """``stream.pcm`` over the 3-minute track's values on the card, int16 and
+    float32, in each mode: ChunkResampler's device twin (CUDA chunks) held
+    to the host oracle over the same values within the reference's 2e-2 and
+    timed; then every drain again with each FMA launch held to ``fma_ref``.
+    -> (launches, the FMA's largest |difference|)."""
+    inter = x.T.reshape(-1)
+    sources = (("int16", torch.tensor(inter, device=CARD), inter, 16, "signed"),
+               ("float32", torch.tensor(inter / np.float32(32768), device=CARD),
+                inter.astype(np.float32) / np.float32(32768), 32, "float"))
+    saved = tk.CONFIG.default_interpolation
+
+    def drains(compare: bool):
+        for mode in TWIN_MODES:
+            tk.CONFIG.default_interpolation = mode
+            for dtype, values, host, depth, kind in sources:
+                t0 = sync_time()
+                got = [c for c, _ in tk.stream.pcm(values, depth, kind, 2, 44100)[0]]
+                dt = sync_time() - t0
+                if not compare:
+                    continue
+                check(all(c.is_cuda and c.dtype == torch.float32 for c in got),
+                      "device twin: float32 chunks on the card")
+                t0 = time.perf_counter()
+                want = [c for c, _ in tk.stream.pcm(host, depth, kind, 2, 44100)[0]]
+                host_s = time.perf_counter() - t0
+                err = max(float(np.abs(g.cpu().numpy() - w).max()) for g, w in zip(got, want))
+                say("stream_device_twin", mode=mode, values=dtype, chunks=len(got),
+                    wall_s=round(dt, 4), realtime_factor=round(WHOLE_SECONDS / dt, 1),
+                    host_oracle_s=round(host_s, 4), max_abs_vs_host=err)
+                check(len(got) == len(want) and err <= 2e-2,
+                      f"device twin {mode}/{dtype}: within 2e-2 of the host oracle")
+
+    try:
+        kernels.reset_counts()
+        drains(True)
+        launched = dsp_counts()
+        held, err, largest = fma_held_to_plain(lambda: drains(False))
+        cut = torch.tensor(inter[: 2 * 44100 * TWIN_CUT_SECONDS])
+        for mode in TWIN_MODES:
+            tk.CONFIG.default_interpolation = mode
+            got, want = ([c.cpu().numpy() for c, _ in tk.stream.pcm(v, 16, "signed", 2, 44100)[0]]
+                         for v in (cut.to(CARD), cut))
+            ok = len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+            say("stream_cut", iterator=f"pcm_device_twin_{mode}", seconds=TWIN_CUT_SECONDS,
+                chunks=len(got), cuda_equals_cpu=ok)
+            check(ok, f"device twin {mode}: the card's chunks == the CPU's over a "
+                  f"{TWIN_CUT_SECONDS} s cut")
+    finally:
+        tk.CONFIG.default_interpolation = saved
+    say("kernel_vs_plain_main_shape", kernel="fma", case="stream_device_twin", launches=held,
+        largest=json.dumps(list(largest)), equal=err == 0)
+    check(held == launched["fma"] and err == 0, "device twin: every FMA launch == fma_ref "
+          f"({held} of {launched['fma']} launches, error {err})")
+    return launched, err
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3190,6 +3584,11 @@ def main() -> None:
     effects_launches, effects_fma_err = phase_effects_chain()
     path_launches.append(effects_launches)
     errs["fma"] = max(errs["fma"], whole_fma_err, effects_fma_err)
+    stream_launches, stream_errs = phase_stream_iterators()
+    path_launches.append(stream_launches)
+    for name, err in stream_errs.items():
+        key = {"ima_decode": "ima", "msadpcm_decode": "msadpcm", "qoa_lms": "qoa"}.get(name, name)
+        errs[key] = max(errs.get(key, 0), err)
     phase_times()
     times.update(phase_encode_time(encode_plain_ms))
     times.update(phase_block_times())
@@ -3210,6 +3609,7 @@ def main() -> None:
              flac_launches),
             # no Pallas kernel: XLA's fused multiply-add in the jitted dsp_chain
             ("fma", "fma", "fma.cu", "aukit_tpu/parallel/pipeline.py:97", block_launches))
+    say("phase_seconds", **PHASE_SECONDS)
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": [

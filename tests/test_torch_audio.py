@@ -49,6 +49,29 @@ def assert_same_audio(got: tk.Audio, want) -> None:
     assert got.metadata == want.metadata and got.info == want.info
 
 
+@pytest.mark.parametrize("loader, args", [("pcm", (8, "signed", 1)), ("adpcm", (1,)),
+                                          ("g711", (True, 1)), ("dfpwm", (1,))])
+def test_loaders_keep_a_fractional_rate(loader, args):
+    """The loaders keep a caller's fractional rate as the JAX loaders do
+    (ROADMAP queue 3, fault 3.1: ``new_audio``'s ``int()`` truncated it)."""
+    raw = RNG.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    got = getattr(tk, loader)(raw, *args, 8000.5, device="cpu")
+    want = getattr(ak, loader)(raw, *args, 8000.5)
+    assert got.sample_rate == want.sample_rate == 8000.5
+    np.testing.assert_array_equal(data(got), data(want))
+
+
+@pytest.mark.parametrize("mode", ["none", "linear", "cubic"])
+def test_fractional_rate_duration_and_resample(mode):
+    """At 22254.545 Hz (a classic Macintosh rate), 1 channel x 400 samples:
+    ``duration`` and ``.resample(48000)`` equal the JAX package's."""
+    raw = RNG.integers(-32768, 32767, 400).astype("<i2").tobytes()
+    got = tk.pcm(raw, 16, "signed", 1, 22254.545, device="cpu")
+    want = ak.pcm(raw, 16, "signed", 1, 22254.545)
+    assert got.duration == want.duration
+    assert_same_audio(got.resample(48000, mode), want.resample(48000, mode))
+
+
 @pytest.mark.parametrize("mode", ["none", "linear", "cubic", "sinc"])
 @pytest.mark.parametrize("rates", [(24000, 48000), (44100, 48000), (48000, 8000), (32000, 44100)])
 def test_resample_parity(mode, rates):

@@ -395,6 +395,37 @@ def test_cuda_engine_raises_without_cuda():
         batch.BatchDfpwmDecoder(2)
 
 
+def test_engines_take_the_jax_positional_arguments():
+    """``BatchStreamEngine(specs, mesh, use_pallas, mono, ...)`` and
+    ``BatchDfpwmDecoder(lanes, sample_rate, chunk_bytes, mesh, use_pallas,
+    codec)`` as in the JAX package, the device keyword only (ROADMAP queue 3,
+    fault 3.5): the same windows as the JAX engines; a mesh raises naming
+    the Multi-GPU item, as FlacFleet, Fleet and BatchEncodeEngine do."""
+    data = np.random.default_rng(404).integers(0, 256, (2, 300), dtype=np.uint8)
+    pairs = []
+    for module, kw in ((batch, {"device": "cpu"}), (jax_batch, {})):
+        specs = [module.LaneSpec("pcm16", 24000), module.LaneSpec("dfpwm", 48000)]
+        pairs.append((module.BatchDfpwmDecoder(2, 48000, 100, None, None, "dfpwm", **kw),
+                      module.BatchStreamEngine(specs, None, None, False, **kw)))
+    for port_eng, jax_eng in zip(*pairs):
+        outs = []
+        for eng in (port_eng, jax_eng):
+            for lane in range(2):
+                eng.feed(lane, data[lane].tobytes())
+                eng.feed(lane, None)
+            outs.append([(np.asarray(r[0]), np.asarray(r[1])) for r in iter(eng.step, None)])
+        assert len(outs[0]) == len(outs[1]) > 0
+        for (w, m), (jw, jm) in zip(*outs):
+            np.testing.assert_array_equal(w, jw)
+            np.testing.assert_array_equal(m, jm)
+    specs = [batch.LaneSpec("pcm16", 24000)]
+    for make in (lambda: batch.BatchStreamEngine(specs, object(), device="cpu"),
+                 lambda: batch.BatchDfpwmDecoder(2, 48000, 100, object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="Multi-GPU"):
+            make()
+    assert batch.BatchStreamEngine(specs, None, False, device="cpu").device.type == "cpu"
+
+
 def test_port_imports_and_runs_without_jax():
     code = """
 import sys

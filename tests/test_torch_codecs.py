@@ -233,6 +233,21 @@ def test_qoa_parity():
             np.testing.assert_array_equal(f[k], jf[k])
 
 
+@pytest.mark.parametrize("use_native", [None, False, True])
+def test_decode_qoa_takes_the_jax_positional_arguments(use_native):
+    """``decode_qoa(data, use_native)`` as in the JAX package, the device
+    keyword only (ROADMAP queue 3, fault 3.5): None and False run kernel
+    (f) on the device (its plain version here), True the native host LMS;
+    every route gives the JAX package's samples."""
+    raw = fixtures.qoa_stream(RNG, 2, 44100, [5120, 700])
+    kernels.reset_counts()
+    got = qoa.decode_qoa(raw, use_native, device="cpu")
+    assert kernels.qoa_lms_ref.calls == (0 if use_native else 1)
+    want = jqoa.decode_qoa(raw, use_native)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+
+
 def test_qoa_loader():
     raw = fixtures.qoa_stream(RNG, 1, 48000, [2000])
     a = tk.qoa(raw, device="cpu")

@@ -166,6 +166,16 @@ def test_aiff_be_pcm():
     assert h.num_samples == 0
 
 
+def test_aiff_fractional_rate_kept():
+    """An AIFF's 80-bit rate is kept as the float it is (ROADMAP queue 3,
+    fault 3.1: the loaders truncated it); ``load`` holds the rate equal."""
+    assert load("aiff", fixtures.aiff_file(b"\x00\x00", 1, 8000.5, 16)).sample_rate == 8000.5
+    sig = RNG.integers(-32768, 32767, 400)
+    a = load("aiff", fixtures.aiff_file(sig.astype(">i2").tobytes(), 1, 22254.545, 16))
+    assert a.sample_rate == ak.aiff(fixtures.aiff_file(sig.astype(">i2").tobytes(), 1,
+                                                       22254.545, 16)).sample_rate != 22254
+
+
 def test_aifc_sowt_and_ulaw():
     sig = RNG.integers(-32768, 32767, (1, 200))
     payload = sig.reshape(-1).astype("<i2").tobytes()

@@ -147,11 +147,22 @@ def test_decode_kernel_cases_match_plain(name):
 def test_lpc_restore_kernel_paths_match_plain(name):
     """Every path of the pipelined restore kernel: rows on and off the
     16-byte grid, a misaligned base, fewer rows than a block, every tap
-    count, wide and negative shifts, ragged blocks, orders beyond the taps."""
+    count, wide and negative shifts, ragged blocks, orders beyond the taps.
+    The rows whose int32 store wraps (the random predictors of most cases
+    are unstable) are reported as the plain version reports them, and the
+    int64 rows of the wide entry point equal the plain int64 restore."""
     _, args, K = next(c for c in kernel_cases.lpc_cases("cuda") if c[0] == name)
     got = lpc_restore_kernel(*args, K)
     torch.cuda.synchronize()
     assert torch.equal(got, lpc_restore_ref(*args, K))
+    wrapped, ref_wrapped = (torch.full((args[0].shape[0],), 7, dtype=torch.int32, device="cuda")
+                            for _ in range(2))
+    got = lpc_restore_kernel(*args, K, wrapped=wrapped)
+    assert torch.equal(got, lpc_restore_ref(*args, K, wrapped=ref_wrapped))
+    assert torch.equal(wrapped, ref_wrapped)
+    wide = (args[0].to(torch.int64).contiguous(), *args[1:])
+    got = lpc_restore_kernel(*wide, K)
+    assert got.dtype == torch.int64 and torch.equal(got, lpc_restore_ref(*wide, K))
 
 
 @pytest.mark.parametrize("name", ENCODE_CASES)
@@ -768,3 +779,105 @@ def test_effects_on_cuda_match_cpu():
     x = rng.random((64, 500))
     assert np.array_equal(tk.new_audio(x, 44100).mono().numpy(),
                           tk.new_audio(x, 44100, device="cpu").mono().numpy())
+
+
+# -- the single-stream iterators -------------------------------------------------------
+
+STREAM_FILES = ("wav_ima", "wav_msadpcm", "flac", "flac_wrapping", "qoa", "wav_dfpwm",
+                "mdfpwm")
+
+
+@pytest.fixture(scope="module")
+def stream_files():
+    """3 s of the whole-file phase's track in the kernel-backed containers
+    (tests/torch_tracks.py), the DFPWM files made on the card."""
+    tracks = load_sibling("torch_tracks")
+    x = tracks.synth_track(3, 44100, seed=70)
+    x48 = tracks.synth_track(3, 48000, seed=71)
+    left, right = tk.new_audio(x48 / 32768.0, 48000).dfpwm(False)
+    wrapping = tracks.flac_file(tracks.synth_track(0.5, 22050, 6), 22050, 3, 1024)[0]
+    return {"wav_ima": tracks.ima_wav(x, 44100), "wav_msadpcm": tracks.msadpcm_wav(x, 44100),
+            "flac": tracks.flac_file(x, 44100)[0], "qoa": tracks.qoa_file(x, 44100),
+            # ROADMAP queue 3, fault 3.3: its unstable predictor leaves int32
+            "flac_wrapping": wrapping[:68] + b"\x00" + wrapping[69:],
+            "wav_dfpwm": tk.new_audio(x / 32768.0, 44100).wav(1),
+            "mdfpwm": load_sibling("fixtures").mdfpwm_file(left, right,
+                                                           len(left) + len(right))}
+
+
+@pytest.mark.parametrize("name", STREAM_FILES)
+def test_stream_iterator_kernels_match_plain(name, stream_files):
+    """Each kernel-backed iterator drained on the card: every block decode
+    it made (kernels (d), (e), (f), (g) at the iterator's own shapes: a
+    second's blocks x channels, a refill's frames and subframes; kernel
+    (g)'s rows with the rows it reported wrapped, and its wide int64 calls
+    where a broken stream's rows wrapped) equals the plain version on the
+    same inputs, and the chunks equal the iterator's on the CPU."""
+    fn = "mdfpwm" if name == "mdfpwm" else "flac" if "flac" in name else \
+        "qoa" if name == "qoa" else "wav"
+    raw = stream_files[name]
+    kernels.reset_counts()
+    with kernel_cases.recorded_stream_decodes() as calls:
+        got = [c for c, _ in getattr(tk.stream, fn)(raw)[0]]
+    assert sum(p.calls for p in kernels.PLAIN) == 0
+    # no row of a valid file wraps kernel (g)'s int32 store; the broken one's do
+    assert (lpc_restore_kernel.wide_launches > 0) == (name == "flac_wrapping")
+    made = [(kind, c) for kind, cs in calls.items() for c in cs]
+    assert len(made) > 0 or "dfpwm" in name  # DFPWM decodes on the host's native route
+    for kind, call in made:
+        np.testing.assert_array_equal(kernel_cases.replay(kind, call, "cpu"), call[2])
+    want = [c for c, _ in getattr(tk.stream, fn)(raw, device="cpu")[0]]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["none", "linear", "cubic", "sinc"])
+def test_stream_pcm_device_twin_matches_cpu(mode):
+    """``stream.pcm`` over values on the card (ChunkResampler's device twin,
+    its FMAs by the kernel) equals the same stream over CPU values (the
+    FMA's plain version) bit for bit, and stays within the reference's 2e-2
+    of the host oracle."""
+    rng = np.random.default_rng(12)
+    vals = rng.integers(-20000, 20000, 2 * 44100 * 2)
+    saved = tk.CONFIG.default_interpolation
+    tk.CONFIG.default_interpolation = mode
+    try:
+        kernels.reset_counts()
+        got = [c for c, _ in tk.stream.pcm(torch.tensor(vals, device="cuda"), 16, "signed", 2,
+                                           44100)[0]]
+        assert fma_kernel.launches > 0 and all(c.is_cuda for c in got)
+        cpu = [c for c, _ in tk.stream.pcm(torch.tensor(vals), 16, "signed", 2, 44100)[0]]
+        host = [c for c, _ in tk.stream.pcm(vals.tolist(), 16, "signed", 2, 44100)[0]]
+    finally:
+        tk.CONFIG.default_interpolation = saved
+    assert len(got) == len(cpu) == len(host)
+    for g, c, h in zip(got, cpu, host):
+        assert torch.equal(g.cpu(), c)
+        np.testing.assert_allclose(c.numpy(), h, atol=2e-2)
+
+
+def test_flac_restore_leaving_int32_restores_wrapped_rows_wide():
+    """A FLAC stream whose unstable predictor leaves int32 (ROADMAP queue 3,
+    fault 3.3): kernel (g) reports the rows its int32 store wrapped, and its
+    wide entry point restores them again in int64 on the card (two launches,
+    one of them wide); the samples equal the CPU's, nothing restores on the
+    host."""
+    from aukit_tpu_torch.codecs import flac
+
+    tracks = load_sibling("torch_tracks")
+    raw = tracks.flac_file(tracks.synth_track(0.5, 22050, 6), 22050, 3, 1024)[0]
+    data = raw[:68] + b"\x00" + raw[69:]
+    kernels.reset_counts()
+    native_calls = []
+    saved = flacbits.restore_lpc_flat
+    flacbits.restore_lpc_flat = lambda *a, **k: native_calls.append(a)
+    try:
+        got = flac.decode_flac(data)[0]
+    finally:
+        flacbits.restore_lpc_flat = saved
+    assert not native_calls
+    assert lpc_restore_kernel.launches == 2 and lpc_restore_kernel.wide_launches == 1
+    want = flac.decode_flac(data, device="cpu")[0]
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 273] == np.float32(36739.324)

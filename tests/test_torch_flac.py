@@ -271,6 +271,98 @@ def test_restore_flat_routes_match_jax(depth, device):
     assert got.dtype == np.int64
 
 
+def overflowing_flac() -> bytes:
+    """ROADMAP queue 3, fault 3.3: a mid/side LPC track (tests/torch_tracks.py)
+    with byte 68 set to 0, so its predictor is unstable and restored values
+    leave int32 (its warm-up and residuals fit)."""
+    from tests import torch_tracks
+
+    raw, _ = torch_tracks.flac_file(torch_tracks.synth_track(0.5, 22050, 6), 22050, 3, 1024)
+    return raw[:68] + b"\x00" + raw[69:]
+
+
+def staged_rows(stream: bytes, dtype=np.int32):
+    """A stream's subframes staged as kernel (g)'s rows: -> [vals, orders,
+    shifts, blocks, coefs] CPU tensors and K, and the parse."""
+    _, ch, d, _, _, pos = flac.parse_flac_header(stream)
+    fm, sub, coefs, values = flac.parse_all_frames(stream, pos, ch, d)
+    T = int(sub["block"].max())
+    vals = np.zeros((len(sub["order"]), T), dtype)
+    vals[np.arange(T)[None, :] < sub["block"][:, None]] = values
+    K = flac_cuda.order_bucket(int(sub["order"].max()))
+    args = [torch.from_numpy(vals)] + [i32(a) for a in (sub["order"], sub["shift"],
+                                                        sub["block"], coefs[:, :K])]
+    return args + [K], (sub, coefs, values)
+
+
+def test_restore_leaving_int32_restores_wrapped_rows_wide(monkeypatch):
+    """The port decodes the overflowing stream as the JAX package does, on
+    all 1502 samples the int32 rows once wrapped (the first at [0, 273],
+    36739.324 in JAX), with no restore on the host: kernel (g) reports the
+    rows whose int32 store wrapped (exactly those whose int64 restore
+    leaves int32; none of a valid stream's), and its int64 rows restore
+    them as the int64 host restore does."""
+    data = overflowing_flac()
+
+    def host_restore(*args, **kwargs):
+        raise AssertionError("a device batch restored on the host")
+
+    monkeypatch.setattr(flacbits, "restore_lpc_flat", host_restore)
+    monkeypatch.setattr(flac, "restore_lpc_batch", host_restore)
+    got, rate, _, depth = flac.decode_flac(data, device="cpu")
+    monkeypatch.undo()
+    want = jax_flac.decode_flac(data)[0]
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 273] == np.float32(36739.324)
+    for stream, leaves in ((data, True), (lpc_stream(np.random.default_rng(5)), False)):
+        args, (sub, coefs, values) = staged_rows(stream)
+        assert flac._fits_int32(values)
+        wrapped = torch.full((len(sub["order"]),), 7, dtype=torch.int32)
+        flac_cuda.lpc_restore_ref(*args, wrapped=wrapped)
+        wide_args, _ = staged_rows(stream, np.int64)
+        wide = flac_cuda.lpc_restore_ref(*wide_args)
+        assert wide.dtype == torch.int64
+        oracle = jax_flac.restore_lpc_batch(wide_args[0].numpy(), coefs, sub["shift"],
+                                            sub["order"])
+        keep = np.arange(oracle.shape[1])[None, :] < sub["block"][:, None]
+        oracle = np.where(keep, oracle, 0)  # the oracle runs on past a short block
+        np.testing.assert_array_equal(wide.numpy(), oracle)
+        leaving = ((oracle < -(1 << 31)) | (oracle >= 1 << 31)).any(1)
+        np.testing.assert_array_equal(wrapped.numpy(), leaving.astype(np.int32))
+        assert bool(leaving.any()) is leaves
+
+
+def test_restore_batch_outside_int32_stays_on_host():
+    """Residuals beyond int32 (a malformed stream) never reach kernel (g):
+    the host check of the batch's range sends it to the int64 restore."""
+    values = np.array([1, 2, (1 << 31) + 5, 7], np.int64)
+    sub = {k: np.array([v], np.int64) for k, v in
+           (("order", 1), ("shift", 0), ("wasted", 0), ("block", 4))}
+    coefs = np.zeros((1, 32), np.int64)
+    coefs[0, 0] = 1
+    calls = flac_cuda.lpc_restore_ref.calls
+    got = flac.restore_flat(sub, coefs, values.copy(), 16, device=True)
+    assert flac_cuda.lpc_restore_ref.calls == calls
+    np.testing.assert_array_equal(got, jax_flac.restore_flat(sub, coefs, values.copy(), 16,
+                                                             device=False))
+
+
+@pytest.mark.parametrize("use_native", [None, False, True])
+def test_decode_flac_takes_the_jax_positional_arguments(use_native):
+    """``decode_flac(data, head, use_native)`` as in the JAX package, the
+    device keyword only (ROADMAP queue 3, fault 3.5): None and False restore
+    on the device (the kernel's plain version here), True natively on the
+    host; every route gives the JAX package's samples."""
+    data = lpc_stream(np.random.default_rng(6))
+    calls = flac_cuda.lpc_restore_ref.calls
+    got = flac.decode_flac(data, False, use_native, device="cpu")
+    assert flac_cuda.lpc_restore_ref.calls - calls == (0 if use_native else 1)
+    want = jax_flac.decode_flac(data, False, use_native)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert flac.decode_flac(data, True, use_native, device="cpu")[0].shape == (1, 0)
+
+
 def test_lpc_restore_ref_depth32_rows_equal_int64():
     """With int64 products the plain version restores 32-bit rows, which
     the TPU's limb arithmetic cannot: its output equals the int64 oracle."""
@@ -297,7 +389,13 @@ def test_lpc_restore_checks_arguments():
     v = torch.zeros((3, 8), dtype=torch.int32)
     lane = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="vals"):
-        flac_cuda.lpc_restore_kernel(v.to(torch.int64), lane, lane, lane, torch.zeros((3, 32)))
+        flac_cuda.lpc_restore_kernel(v.to(torch.int16), lane, lane, lane, torch.zeros((3, 32)))
+    with pytest.raises(ValueError, match="wrapped is reported for int32 rows only"):
+        flac_cuda.lpc_restore_kernel(v.to(torch.int64), lane, lane, lane,
+                                     torch.zeros((3, 8), dtype=torch.int32), wrapped=lane)
+    with pytest.raises(ValueError, match="wrapped"):
+        flac_cuda.lpc_restore_kernel(v, lane, lane, lane, torch.zeros((3, 8), dtype=torch.int32),
+                                     wrapped=lane[:2])
     with pytest.raises(ValueError, match="coefs"):
         flac_cuda.lpc_restore_kernel(v, lane, lane, lane, torch.zeros((2, 32), dtype=torch.int32))
     with pytest.raises(ValueError, match="K must be"):

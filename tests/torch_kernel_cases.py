@@ -4,7 +4,9 @@ DFPWM decode, with and without its fused DSP, and the DFPWM encode
 zero-state lowpass (``csrc/iir.cu``), the last three on the pipelined
 skeleton ``ring_rows`` of ``csrc/lane_scan.cuh``; the QOA LMS
 (``csrc/qoa.cu``) and the IMA and MS ADPCM decodes (``csrc/adpcm.cu``) on its
-``window_rows``. One definition for the card tests
+``window_rows``; and ``recorded_stream_decodes``, which keeps the block
+decodes the stream iterators make so that each replays at its own shape on
+another device. One definition for the card tests
 (``tests/test_torch_cuda.py``) and for ``chip_smoke.py``, which both load
 this file by path and hold each case's kernel output against the plain
 version, max |error| 0, and for the CPU tests (``tests/test_torch_dfpwm.py``,
@@ -15,6 +17,9 @@ only.
 """
 
 from __future__ import annotations
+
+import contextlib
+import importlib
 
 import numpy as np
 import torch
@@ -597,3 +602,74 @@ def whole_file_cases(device="cuda", seconds: float = WHOLE_FILE_SECONDS):
     blocks[-2:] = last
     yield ("lpc_file", "lpc", tuple(_i32(a, device) for a in (
         vals, np.full(rows, 8), shifts, blocks, coefs)) + (8,))
+
+
+# the block decodes the stream iterators make, by the kernel each one
+# launches: the ADPCM and QOA helpers (numpy in and out, ``device`` by
+# keyword), and kernel (g)'s wrapper itself, which ``restore_flat`` looks up
+# at call time (its staged rows on the device in, the rows it reports
+# wrapped, and the wide int64 call for those rows where there are any)
+STREAM_DECODES = {"ima": ("aukit_tpu_torch.codecs.adpcm", "ima_adpcm_blocks"),
+                  "msadpcm": ("aukit_tpu_torch.codecs.adpcm", "decode_msadpcm_blocks"),
+                  "qoa": ("aukit_tpu_torch.codecs.qoa", "qoa_lms_batched"),
+                  "lpc": ("aukit_tpu_torch.kernels.flac_cuda", "lpc_restore_kernel")}
+
+
+def lpc_rows_result(out: torch.Tensor, wrapped) -> np.ndarray:
+    """A kernel (g) call's result as numpy: its restored rows in int64, and
+    where the call reported wrapped rows, their flags as a last column."""
+    rows = out.cpu().numpy().astype(np.int64)
+    if wrapped is None:
+        return rows
+    return np.concatenate([rows, wrapped.cpu().numpy().astype(np.int64)[:, None]], axis=1)
+
+
+@contextlib.contextmanager
+def recorded_stream_decodes():
+    """Within the block, every call of a ``STREAM_DECODES`` entry (the
+    stream iterators and ``restore_flat`` import them at call time) is
+    recorded: yields {kind: [(args, kwargs, result)]}, each result numpy
+    (``lpc_rows_result`` for kernel (g)), replayed on another device by
+    ``replay``."""
+    calls = {kind: [] for kind in STREAM_DECODES}
+    saved = []
+    for kind, (module_name, name) in STREAM_DECODES.items():
+        module = importlib.import_module(module_name)
+        fn = getattr(module, name)
+
+        def recording(*args, _fn=fn, _kind=kind, **kwargs):
+            out = _fn(*args, **kwargs)
+            result = lpc_rows_result(out, kwargs.get("wrapped")) if _kind == "lpc" else out
+            calls[_kind].append((args, kwargs, result))
+            return out
+
+        # kernel (g)'s wrapper counts its launches on its module's name, the
+        # recorder while it stands there: they go back to the wrapper at the end
+        recording.launches = recording.wide_launches = 0
+        saved.append((module, name, fn))
+        setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            recording = getattr(module, name)
+            for count in ("launches", "wide_launches"):
+                if hasattr(fn, count):
+                    setattr(fn, count, getattr(fn, count) + getattr(recording, count))
+            setattr(module, name, fn)
+
+
+def replay(kind: str, call, device):
+    """A recorded block decode again on ``device`` (the kernel on a card,
+    its plain version on the CPU): -> its result, numpy like the first.
+    Kernel (g)'s staged rows move to ``device``, with a new ``wrapped``."""
+    module_name, name = STREAM_DECODES[kind]
+    args, kwargs, _ = call
+    fn = getattr(importlib.import_module(module_name), name)
+    if kind != "lpc":
+        return fn(*args, **{**kwargs, "device": device})
+    moved = [a.to(device) if torch.is_tensor(a) else a for a in args]
+    wrapped = kwargs.get("wrapped")
+    if wrapped is not None:
+        wrapped = torch.empty_like(wrapped, device=device)
+    return lpc_rows_result(fn(*moved, wrapped=wrapped), wrapped)
