@@ -13,10 +13,15 @@ seek) and the batched encode engine (the write path: DFPWM and PCM
 8/16/24/32, device-to-device transcodes) on an NVIDIA GPU, with hand-written
 CUDA kernels for Hopper; and the single-stream iterators of ``stream``
 (``stream.pcm``, ``.wav``, ``.flac``, ...: one second of 48 kHz audio a
-call, their block decodes on ``device``). It mirrors the module paths and
-public names of the JAX package ``aukit_tpu``, which stays the reference, and
-imports neither ``jax`` nor ``aukit_tpu``. Not ported yet: ``play``,
-``player`` and ``play_file`` (they raise).
+call, their block decodes on ``device``); playback (``play``, ``player``,
+``play_file``, ``playback.play_fleet`` and the sinks of ``playback``),
+``utils.trace`` on ``torch.profiler``, and the four programs of ``cli``
+(``python -m aukit_tpu_torch.cli.auplay``, ``.austream``, ``.austream_tm``,
+``.auconvert``; each takes ``--device {cuda,cpu}``, the card by default). It
+mirrors the module paths and public names of the JAX package ``aukit_tpu``,
+which stays the reference, and imports neither ``jax`` nor ``aukit_tpu``.
+Not ported yet: the ``mesh=`` options and the multi-device layer (they
+raise).
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from .stream import (BatchDfpwmDecoder, BatchDfpwmEncoder, BatchEncodeEngine, Ba
                      encode_windows_many, lane_spec_for_aiff,
                      lane_spec_for_au, lane_spec_for_qoa, lane_spec_for_wav, mdfpwm_to_lanes,
                      transcode_fleet)
+
+__version__ = "0.3.0"
+_REFERENCE_VERSION = "1.10.0"  # aukit.lua:98
 
 __all__ = ["Audio", "new_audio", "pcm", "adpcm", "msadpcm", "g711", "dfpwm", "mdfpwm", "wav",
            "aiff", "au", "flac", "qoa", "new", "tone", "noise", "pack", "detect", "effects",
@@ -206,25 +214,34 @@ def detect(data: bytes):
     return detect_format(data)
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"aukit_tpu_torch.{name}: playback is not ported yet (ROADMAP queue 1 item 1, "
-        "playback and the CLIs)")
+# the stream iterators that take ``device`` (their block decodes run there)
+_DEVICE_STREAMS = ("dfpwm", "mdfpwm", "wav", "flac", "qoa")
 
 
-def play(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 1)."""
-    _not_ported("play")
+def play_file(path: str, *sinks, volume: float | None = None, device="cuda"):
+    """One-liner player (the reference module's __call metamethod,
+    aukit.lua:100-107): detect the format from the first 64 bytes (DFPWM as
+    the fallback), stream-decode, and play. With no sinks, a realtime-paced
+    null sink is used. The iterators that decode blocks do so on ``device``
+    (the card unless the caller passes "cpu")."""
+    from .playback import NullSink
 
-
-def player(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 1)."""
-    _not_ported("player")
-
-
-def play_file(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP queue 1 item 1)."""
-    _not_ported("play_file")
+    device = require_device(device, "play_file")
+    with open(path, "rb") as f:
+        head = f.read(64)
+        f.seek(0)
+        data = f.read()
+    kind = detect(head)[0] or "dfpwm"
+    streamer = getattr(stream, kind)
+    kw = {"device": device} if kind in _DEVICE_STREAMS else {}
+    if kind == "dfpwm":
+        it, _ = streamer(data, 48000, 1, **kw)
+    else:
+        it, _ = streamer(data, **kw)
+    if not sinks:
+        sinks = (NullSink(realtime=True),)
+    play(it, *sinks, volume=volume)
 
 
 from . import effects, stream  # noqa: E402
+from .playback import play, player  # noqa: E402

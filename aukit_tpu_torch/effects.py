@@ -39,8 +39,10 @@ import numpy as np
 import torch
 
 from .audio import Audio
-from .kernels.fma_cuda import fma_kernel
-from .ops.scan import linear_scan
+# private names: the public callables of this module are the JAX module's
+# (``auconvert -e list`` lists them)
+from .kernels.fma_cuda import fma_kernel as _fma_kernel
+from .ops.scan import linear_scan as _linear_scan
 
 _ALLPASS = float(np.float32(0.131))  # the allpass gain, a float32 constant
 
@@ -180,7 +182,7 @@ def _feedback_blocks(d: torch.Tensor, lag: int, multiplier, clamp: bool) -> torc
     out = d.clone()
     for s in range(lag, n, lag):
         e = min(s + lag, n)
-        y = fma_kernel(out[:, s - lag: e - lag], mult, d[:, s:e])
+        y = _fma_kernel(out[:, s - lag: e - lag], mult, d[:, s:e])
         out[:, s:e] = y.clamp(-1.0, 1.0) if clamp else y
     return out
 
@@ -215,8 +217,8 @@ def _allpass_inplace(s: torch.Tensor, lag: int) -> torch.Tensor:
         b, lo = min(a + blk, n), max(a, lag + 1)
         if lo >= b:
             continue
-        upd = fma_kernel(out[:, lo - lag: b - lag], -_ALLPASS, out[:, lo:b])
-        out[:, lo:b] = fma_kernel(out[:, lo - blk: b - blk], _ALLPASS, upd)
+        upd = _fma_kernel(out[:, lo - lag: b - lag], -_ALLPASS, out[:, lo:b])
+        out[:, lo:b] = _fma_kernel(out[:, lo - blk: b - blk], _ALLPASS, upd)
     return out
 
 
@@ -277,7 +279,7 @@ def lowpass(audio: Audio, frequency: float) -> Audio:
     A[:, 0] = 0.0
     B = d * _f32(a)
     B[:, 0] = d[:, 0]
-    return _set(audio, linear_scan(A, B))
+    return _set(audio, _linear_scan(A, B))
 
 
 def highpass(audio: Audio, frequency: float) -> Audio:
@@ -292,4 +294,4 @@ def highpass(audio: Audio, frequency: float) -> Audio:
     A = torch.full(d.shape, _f32(a), dtype=torch.float32, device=d.device)
     A[:, 0] = 0.0
     B = torch.cat([d[:, :1], dx * _f32(a)], dim=1)
-    return _set(audio, linear_scan(A, B))
+    return _set(audio, _linear_scan(A, B))

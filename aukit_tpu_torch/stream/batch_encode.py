@@ -52,8 +52,7 @@ from ..codecs.dfpwm import DfpwmState
 from ..kernels.dfpwm_cuda import dfpwm_encode_kernel
 from ..kernels.fma_cuda import fma_kernel
 from ..ops.pcmcode import denormalize_pcm
-from ..config import require_device
-from .batch import BatchMetrics, _GroupIO, _to_device
+from .batch import BatchMetrics, _GroupIO, _to_device, engine_device
 from .batch_codecs import NoState
 
 __all__ = ["BatchDfpwmEncoder", "BatchEncodeEngine", "EncodeSpec", "ENCODE_CODECS",
@@ -68,13 +67,16 @@ class BatchDfpwmEncoder:
     ``step()`` consumes ``chunk_samples`` per ready lane and returns (bytes
     uint8[L, chunk_samples//8] on the device, mask, positions_seconds).
     Trailing partials are zero-padded to whole bytes (the reference encoder
-    consumes whole bytes, aukit.lua:1009).
+    consumes whole bytes, aukit.lua:1009). ``use_pallas`` is the JAX
+    package's kernel switch (False, the plain version, is refused on a
+    card); ``device`` is keyword only, "cuda" by default.
     """
 
-    def __init__(self, lanes: int, chunk_samples: int = 48000, device="cuda"):
+    def __init__(self, lanes: int, chunk_samples: int = 48000, use_pallas: bool | None = None,
+                 *, device="cuda"):
         if chunk_samples % 8:
             raise ValueError("chunk_samples must be a multiple of 8")
-        self.device = require_device(device, "BatchDfpwmEncoder")
+        self.device = engine_device(device, None, use_pallas, "BatchDfpwmEncoder")
         self.lanes = lanes
         self.chunk_samples = chunk_samples
         self.io = _GroupIO(lanes, chunk_samples)  # 1 byte per sample (pcm8)
@@ -328,21 +330,20 @@ class BatchEncodeEngine:
     specs : one EncodeSpec per lane (equal specs share a dispatch)
     chunk_samples : per-channel samples consumed per host-fed step (the
         window length for ``encode_windows`` is taken from the tensor)
-    device : torch device the encode runs on; "cuda" (the default) raises at
-        construction when no CUDA device is present
-    mesh : not ported (``NotImplementedError``)
+    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1, "Multi-GPU")
+    use_pallas : the JAX package's kernel switch; None or True launch the
+        CUDA kernels on a card, False runs the plain versions and is refused
+        on a card
+    device : keyword only: torch device the encode runs on; "cuda" (the
+        default) raises at construction when no CUDA device is present
     """
 
     def __init__(self, specs: Sequence[EncodeSpec], chunk_samples: int = 48000,
-                 device="cuda", mesh=None):
+                 mesh=None, use_pallas: bool | None = None, *, device="cuda"):
         specs = list(specs)
         if not specs:
             raise ValueError("need at least one lane")
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchEncodeEngine(mesh=...) is not ported to aukit_tpu_torch yet "
-                "(ROADMAP.md queue 1, 'Multi-GPU')")
-        self.device = require_device(device, "BatchEncodeEngine")
+        self.device = engine_device(device, mesh, use_pallas, "BatchEncodeEngine")
         self._side_stream = None  # made by encode_windows_many on a CUDA device
         self.specs = specs
         self.lanes = len(specs)

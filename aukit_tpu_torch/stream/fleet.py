@@ -43,8 +43,8 @@ import time
 import numpy as np
 import torch
 
-from ..config import CONFIG, require_device
-from .batch import BatchMetrics, BatchStreamEngine, _dev_padch
+from ..config import CONFIG
+from .batch import BatchMetrics, BatchStreamEngine, _dev_padch, engine_device
 from .batch_codecs import (LaneSpec, lane_spec_for_aiff, lane_spec_for_au, lane_spec_for_qoa,
                            lane_spec_for_wav)
 from .flac_fleet import FlacFleet
@@ -159,22 +159,22 @@ class Fleet:
         FlacFleet: mono [N, T], else per-channel [N, channels, T])
     interpolation : resample mode override (none/linear/cubic/sinc) for both
         the FLAC lanes and the engine DSP
+    use_pallas : the JAX package's kernel switch (``BatchStreamEngine``'s):
+        None or True launch the CUDA kernels on a card, False runs the plain
+        versions and is refused on a card
     device_restore / device_dsp : the FLAC lanes' routes (``FlacFleet``):
         ``device_dsp=True`` runs their restore and DSP on the device
-    device : torch device of both engines and of the windows; "cuda" (the
-        default) raises when no CUDA device is present
+    device : keyword only: torch device of both engines and of the windows;
+        "cuda" (the default) raises when no CUDA device is present
     mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1,
         "Multi-GPU")
     """
 
     def __init__(self, sources, eof: bool = True, mesh=None, mono: bool = True,
                  channels: int = 2, interpolation: str | None = None,
-                 device_restore: bool | None = None, device_dsp: bool = False,
-                 device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("Fleet(mesh=...) is not ported to aukit_tpu_torch yet "
-                                      "(ROADMAP.md queue 1, 'Multi-GPU')")
-        self.device = device = require_device(device, "Fleet")
+                 use_pallas: bool | None = None, device_restore: bool | None = None,
+                 device_dsp: bool = False, *, device="cuda"):
+        self.device = device = engine_device(device, mesh, use_pallas, "Fleet")
         self.mono = mono
         self.out_ch = 1 if mono else channels
         self.out_rate = CONFIG.output_rate
@@ -209,8 +209,9 @@ class Fleet:
             initial.append(data)
         self.engine = None
         if specs:
-            self.engine = BatchStreamEngine(specs, device=device, mono=mono, windowed=True,
-                                            interpolation=interpolation)
+            self.engine = BatchStreamEngine(specs, use_pallas=use_pallas, mono=mono,
+                                            windowed=True, interpolation=interpolation,
+                                            device=device)
         self.flac = None
         if n_flac:
             self.flac = FlacFleet(n_flac, device_restore=device_restore, device_dsp=device_dsp,

@@ -137,7 +137,7 @@ def test_chain_bit_equal_given_jax_scan(case, monkeypatch):
     """The chains with the port's ``linear_scan`` swapped for the jitted
     ``_affine_scan`` of the same (A, B): the lowpass and every streamed
     chunk bit-equal to the JAX chain's."""
-    monkeypatch.setattr(fx, "linear_scan", lambda A, B: torch.from_numpy(
+    monkeypatch.setattr(fx, "_linear_scan", lambda A, B: torch.from_numpy(
         np.array(jfx._affine_scan(A.numpy(), B.numpy()))))
     monkeypatch.setitem(globals(), "STRICT", True)
     if case == "config5":

@@ -501,6 +501,13 @@ assert len(enc.checkpoint(1)["codec_state"]) == 3
 pcm8 = t.BatchDfpwmEncoder(2, chunk_samples=64, device="cpu")
 pcm8.feed_array(rng.integers(0, 256, (2, 128), dtype=np.uint8))
 assert pcm8.step()[0].shape == (2, 8) and pcm8.step() is not None and pcm8.done
+# playback, the trace hooks and the four programs
+import aukit_tpu_torch.playback, aukit_tpu_torch.utils.trace
+from aukit_tpu_torch.cli import auconvert, auplay, austream, austream_tm
+assert auconvert.parse_map("1&2=1") == (1, 1, [{"channel": 1}, {"channel": 2}, "&"])
+sink = aukit_tpu_torch.playback.BufferSink()
+t.play(iter([(np.full((1, 10), 3.0), 0.0)]), sink)
+assert sink.samples().tolist() == [3] * 10
 assert not any(m.startswith(("jax", "aukit_tpu.")) for m in sys.modules if sys.modules[m])
 print("ok")
 """

@@ -881,3 +881,53 @@ def test_flac_restore_leaving_int32_restores_wrapped_rows_wide():
     want = flac.decode_flac(data, device="cpu")[0]
     np.testing.assert_array_equal(got, want)
     assert got[0, 273] == np.float32(36739.324)
+
+
+def test_programs_on_cuda_match_cpu(tmp_path):
+    """The four programs' card runs against their ``--device cpu`` runs on
+    short files: auplay and austream on a FLAC and an IMA WAV (austream
+    refuses the IMA WAV's 48,620-sample chunks on both devices, as the JAX
+    package does), auconvert to mono 48 kHz DFPWM and ``--fleet``, and
+    ``play_fleet`` over a card Fleet's windows: equal bytes and outcomes;
+    kernels (c), (d), (g) and the FMA launch, no plain version on the card."""
+    from aukit_tpu_torch.cli import auconvert, auplay, austream
+    from aukit_tpu_torch.playback import BufferSink, play_fleet
+    from aukit_tpu_torch.stream.fleet import Fleet
+
+    tracks = load_sibling("torch_tracks")
+    x = tracks.synth_track(1.5, 44100, seed=5)
+    files = {"flac": tracks.flac_file(x, 44100, variants=3)[0], "wav": tracks.ima_wav(x, 44100)}
+    for ext, raw in files.items():
+        (tmp_path / f"in.{ext}").write_bytes(raw)
+    flac, wav = str(tmp_path / "in.flac"), str(tmp_path / "in.wav")
+    runs = [(auplay.main, [flac, "-o", "{0}.raw"]), (auplay.main, [wav, "-o", "{0}.raw"]),
+            (austream.main, [flac, "-o", "{0}.raw"]), (austream.main, [wav, "-o", "{0}.raw"]),
+            (auconvert.main, ["-i", wav, "-o", "{0}.dfpwm", "-e", "mono", "-R", "48000"]),
+            (auconvert.main, ["--fleet", "-i", flac, "-i", wav, "-o", "{0}.dfpwm", "-o",
+                              "{1}.dfpwm"])]
+
+    def outcome(main, args, device):
+        outs = [str(tmp_path / f"{device}{k}") for k in range(2)]
+        args = [a.format(*outs) for a in args]
+        try:
+            main(args + ["--device", device])
+            err = None
+        except ValueError as e:
+            err = str(e)
+        return err, [Path(a).read_bytes() for a in args if a.startswith(tuple(outs))]
+
+    kernels.reset_counts()
+    got = [outcome(*r, "cuda") for r in runs]
+    assert sum(fn.calls for fn in kernels.PLAIN) == 0
+    assert all(k.launches > 0 for k in (dfpwm_encode_kernel, ima_decode_kernel,
+                                        lpc_restore_kernel, fma_kernel))
+    want = [outcome(*r, "cpu") for r in runs]
+    assert got == want
+    assert got[3][0] == "chunk too large (48620 > 48000)"
+    assert all(b for i, (_, outs) in enumerate(got) if i != 3 for b in outs)
+    sinks = {}
+    for device in ("cuda", "cpu"):
+        sinks[device] = [BufferSink() for _ in files]
+        play_fleet(Fleet(list(files.values()), device=device), sinks[device])
+    for g, w in zip(sinks["cuda"], sinks["cpu"]):
+        assert len(g.samples()) >= 48000 and np.array_equal(g.samples(), w.samples())

@@ -218,7 +218,7 @@ def test_scan_bit_equal_given_jax_scan(effect, monkeypatch):
     effect is bit-equal to the JAX effect. The coefficients, A, B and the
     first column add no residue."""
     a, j, _ = make_audio(rate=8000, n=6000)
-    monkeypatch.setattr(fx, "linear_scan", jax_scan)
+    monkeypatch.setattr(fx, "_linear_scan", jax_scan)
     getattr(fx, effect)(a, 1000)
     getattr(jfx, effect)(j, 1000)
     assert_twin(a, j)
