@@ -17,11 +17,14 @@ call, their block decodes on ``device``); playback (``play``, ``player``,
 ``play_file``, ``playback.play_fleet`` and the sinks of ``playback``),
 ``utils.trace`` on ``torch.profiler``, and the four programs of ``cli``
 (``python -m aukit_tpu_torch.cli.auplay``, ``.austream``, ``.austream_tm``,
-``.auconvert``; each takes ``--device {cuda,cpu}``, the card by default). It
-mirrors the module paths and public names of the JAX package ``aukit_tpu``,
-which stays the reference, and imports neither ``jax`` nor ``aukit_tpu``.
-Not ported yet: the ``mesh=`` options and the multi-device layer (they
-raise).
+``.auconvert``; each takes ``--device {cuda,cpu}``, the card by default); and
+the multi-device layer: ``parallel.pipeline.make_mesh`` (lane shards over
+the visible cards, round-robin, several to a card), the ``mesh=`` option of
+every engine, ``sharded_pipeline_step``, the sharded FLAC restore, and
+``parallel.distributed`` (``MultiHostEngine`` and the flagship step over a
+``torch.distributed`` gloo group). It mirrors the module paths and public
+names of the JAX package ``aukit_tpu``, which stays the reference, and
+imports neither ``jax`` nor ``aukit_tpu``.
 """
 
 from __future__ import annotations

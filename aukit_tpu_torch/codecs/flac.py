@@ -389,17 +389,17 @@ def parse_all_frames(data: bytes, pos: int, channels: int, depth: int,
 
 
 def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None,
-                 on="cpu"):
+                 mesh=None, *, on="cpu"):
     """Batched LPC restore (+ wasted-bits shift) over a FLAT subframe batch:
     one contiguous span of warmup+residuals per subframe (the parser layout).
     Returns restored_flat int64[sum(block)].
 
     The batch may span many independent streams (the FLAC fleet): subframes
     are independent lanes, so the whole fleet restores in one call. With
-    ``device=True`` the rows are staged as int32[S, T_max] on the torch
-    device ``on`` and restored by ``lpc_restore_kernel``: the CUDA kernel on
-    a card, its plain version on the CPU (the JAX package's interpret
-    mode). ``depth`` must be the batch's maximum: a batch deeper than 24 bits
+    ``device=True`` the rows are staged as int32[S, T_max] and restored on
+    the torch device ``on`` by ``lpc_restore_kernel`` (``lpc_restore_sharded``
+    over that one device): the CUDA kernel on a card, its plain version on
+    the CPU (the JAX package's interpret mode). ``depth`` must be the batch's maximum: a batch deeper than 24 bits
     stays on the host, as in the JAX package, and so does a malformed batch
     whose warm-up or residuals leave int32 (one host check of their minimum
     and maximum before staging). A malformed stream whose unstable predictor
@@ -407,36 +407,29 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
     the kernel reports the rows whose int32 store wrapped, and those rows
     are restored again in int64 rows by the kernel's wide entry point, on
     the same device, as the JAX package's host restore keeps them in int64.
-    Otherwise (``device`` None or False) the native C++ in-place restore
-    runs, else the numpy batch."""
+    With a ``mesh`` (``parallel.pipeline.make_mesh``) the rows are split
+    over its shards instead, each restored on its device
+    (``lpc_restore_sharded``, wrapped rows included), unless ``device`` is
+    an explicit False: the host opt-out wins over the mesh, as in the JAX
+    package. Otherwise (``device`` None or False) the native C++ in-place
+    restore runs, else the numpy batch."""
     S = len(sub["order"])
     if S == 0:
         return np.zeros(0, np.int64)
     offs = np.concatenate([[0], np.cumsum(sub["block"])])
     T_max = int(sub["block"].max())
     keep = np.arange(T_max)[None, :] < np.asarray(sub["block"])[:, None]
-    if device and depth <= DEVICE_MAX_DEPTH and _fits_int32(values_flat):
-        from ..kernels.flac_cuda import lpc_restore_kernel, order_bucket
+    routed = device or (mesh is not None and device is not False)
+    if routed and depth <= DEVICE_MAX_DEPTH and _fits_int32(values_flat):
+        from ..kernels.flac_cuda import lpc_restore_sharded
+        from ..parallel.mesh import device_mesh
 
         # staging scatters the flat values in one masked assignment
         # (row-major order == the parser's span order)
         vals = np.zeros((S, T_max), np.int32)
         vals[keep] = values_flat
-
-        def lanes(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(on)
-
-        # the tap count from the host's orders: the wrapper need not read them back
-        K = order_bucket(int(np.max(sub["order"])))
-        args = [lanes(vals), lanes(sub["order"]), lanes(sub["shift"]), lanes(sub["block"]),
-                lanes(coefs[:, :K])]
-        wrapped = torch.empty(S, dtype=torch.int32, device=on)
-        restored = lpc_restore_kernel(*args, K, wrapped=wrapped).cpu().numpy().astype(np.int64)
-        rows = np.flatnonzero(wrapped.cpu().numpy())
-        if rows.size:
-            pick = torch.from_numpy(rows).to(on)
-            args[0] = args[0].to(torch.int64)
-            restored[rows] = lpc_restore_kernel(*(a[pick] for a in args), K).cpu().numpy()
+        restored = lpc_restore_sharded(vals, sub["order"], sub["shift"], sub["block"], coefs,
+                                       device_mesh(on) if mesh is None else mesh).cpu().numpy()
         restored <<= sub["wasted"][:, None]
         return restored[keep]
     from ..native import flacbits as _nb
@@ -541,22 +534,22 @@ def decode_flac(data: bytes, head: bool = False, use_native: bool | None = None,
     """Full decode -> (float32[C, N] in [-0.5, 0.5) (numpy), sample_rate,
     meta, depth): the host parse (native C++ when it builds), the LPC
     restore of every subframe at once on ``device`` (kernel (g)), the stereo
-    decorrelation on the host, and the float64 normalise by 2^depth. (The
-    JAX package runs the whole decode in one native pass; its staged path,
-    the same steps, is its parity oracle.) ``use_native``: None parses
+    decorrelation on the host, and the float64 normalise by 2^depth (the
+    JAX package's staged path, its parity oracle). ``use_native``: None parses
     natively when the library builds; False parses in Python; True runs
-    every step the JAX package runs natively on the host (the parse and the
-    restore: no kernel), and raises when the library does not build."""
+    the JAX package's native route: one fused C++ pass on the host (parse,
+    restore, decorrelation and normalise: ``flacbits.decode_full``; no
+    kernel), and raises when the library does not build."""
     device = require_device(device, "decode_flac")
     sample_rate, channels, depth, num_samples, meta, pos = parse_flac_header(data)
     if head:
         return np.zeros((channels, 0), np.float32), sample_rate, meta, depth
-    frame_meta, sub, coefs, values = parse_all_frames(data, pos, channels, depth, use_native)
     if use_native:
-        restored = restore_flat(sub, coefs, values, depth)
-        arr = decorrelate_frames(frame_meta, sub["block"], restored, channels, depth)
-    else:
-        arr = restore_and_decorrelate(frame_meta, sub, coefs, values, channels, depth, device)
+        from ..native import flacbits as _nb
+
+        return _nb.decode_full(data, pos, channels, depth), sample_rate, meta, depth
+    frame_meta, sub, coefs, values = parse_all_frames(data, pos, channels, depth, use_native)
+    arr = restore_and_decorrelate(frame_meta, sub, coefs, values, channels, depth, device)
     norm = (arr.astype(np.float64) / (1 << depth)).astype(np.float32)
     return norm, sample_rate, meta, depth
 

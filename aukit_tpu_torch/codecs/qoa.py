@@ -243,9 +243,10 @@ def decode_qoa(data: bytes, use_native: bool | None = None, *, device="cuda"):
     """QOA bytes -> (int32[C, N] reconstructed samples (numpy), sample_rate,
     file_samples): the host parse, then the LMS of every frame and channel
     at once by kernel (f) on ``device`` (``qoa_lms_batched``).
-    ``use_native=True`` runs the LMS in the native C++ on the host instead,
-    as the JAX package's native route does (no kernel), and raises when the
-    library does not build."""
+    ``use_native=True`` takes the JAX package's native route instead: one
+    fused C++ pass on the host (frame walk, slices and LMS:
+    ``flacbits.qoa_decode``; no kernel), and raises when the library does
+    not build."""
     device = require_device(device, "decode_qoa")
     try:
         magic, file_samples = struct.unpack_from(">4sI", data, 0)
@@ -255,19 +256,18 @@ def decode_qoa(data: bytes, use_native: bool | None = None, *, device="cuda"):
         raise ValueError("Not a QOA file")
     file_channels = data[8]
     file_sample_rate = int.from_bytes(data[9:12], "big")
+    if use_native:
+        from ..native import flacbits
+
+        out = flacbits.qoa_decode(data, 8, file_channels, file_sample_rate, file_samples)
+        return out, file_sample_rate, file_samples
     parsed = parse_qoa_bulk(data, 8, file_channels, file_sample_rate, file_samples)
     if parsed is None:
         return np.zeros((file_channels, 0), np.int32), file_sample_rate, file_samples
     dq, hist, wts, samples = parsed
     F, C, tmax = dq.shape
     lanes = (dq.reshape(F * C, tmax), hist.reshape(F * C, 4), wts.reshape(F * C, 4))
-    if use_native:
-        from ..native import flacbits
-
-        out = flacbits.qoa_lms(*lanes)[0]
-    else:
-        out = qoa_lms_batched(*lanes, device=device)
-    out = out.reshape(F, C, tmax)
+    out = qoa_lms_batched(*lanes, device=device).reshape(F, C, tmax)
     # per-frame sample masks -> one flat gather per channel
     keep = np.arange(tmax)[None, :] < samples[:, None]  # [F, tmax]
     chans = [out[:, c][keep] for c in range(C)]

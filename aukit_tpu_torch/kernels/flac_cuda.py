@@ -21,8 +21,10 @@ raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..parallel.mesh import check_mesh, sharded_rows
 from . import _build
 from ._wrap import check_lane_vector, check_rows, stream_of
 
@@ -133,6 +135,50 @@ def lpc_restore_kernel(vals, orders, shifts, blocks, coefs, K: int | None = None
 
 lpc_restore_kernel.launches = 0
 lpc_restore_kernel.wide_launches = 0  # of them, the int64 rows' (malformed streams only)
+
+
+def lpc_restore_sharded(vals, orders, shifts, blocks, coefs, mesh,
+                        use_pallas: bool | None = None) -> torch.Tensor:
+    """The batched restore with its subframe rows split over a mesh
+    (``parallel.pipeline.make_mesh``), zero collectives: rows are padded to a
+    multiple of the mesh's shards (order 0: nothing restored), and each
+    shard restores its rows on its device by ``lpc_restore_kernel`` (the
+    CUDA kernel on a card, its plain version on the CPU), with fault 3.3's
+    wrapped-row flags: the rows whose int32 store wrapped are restored again
+    in int64 by the wide entry point, on the same shard. ``vals`` int32[S,
+    T], ``orders``/``shifts``/``blocks`` int32[S], ``coefs`` int32[S, >= K]
+    (numpy or tensors); the tap count K is the whole batch's order bucket.
+    ``use_pallas`` is the JAX package's switch: False runs the plain version
+    and is refused on a card. Returns the restored rows as int64[S, T] on
+    the mesh's first device (``lpc_restore_sharded`` of
+    aukit_tpu/kernels/flac_pallas.py:225, which returns int32 rows)."""
+    mesh = check_mesh(mesh, "lpc_restore_sharded")
+    if use_pallas is False and mesh.first.type == "cuda":
+        raise ValueError("lpc_restore_sharded(use_pallas=False): on a card the port "
+                         "launches its CUDA kernel; use a CPU mesh for the plain version")
+    restore = lpc_restore_ref if use_pallas is False else lpc_restore_kernel
+
+    def i32(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(torch.int32)
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+    args = [i32(a) for a in (vals, orders, shifts, blocks)]
+    S = args[0].shape[0]
+    K = order_bucket(int(args[1].max()) if S else 1)
+    args.append(i32(coefs[:, :K]))
+
+    def shard(v, o, sh, b, cf):
+        wrapped = torch.empty(v.shape[0], dtype=torch.int32, device=v.device)
+        out = restore(v.contiguous(), o, sh, b, cf.contiguous(), K, wrapped=wrapped)
+        out = out.to(torch.int64)
+        rows = torch.nonzero(wrapped).flatten()
+        if rows.numel():
+            out[rows] = restore(v[rows].to(torch.int64), o[rows], sh[rows], b[rows],
+                                cf[rows].contiguous(), K)
+        return out
+
+    return sharded_rows(mesh, shard, args, S)
 
 KERNELS = (lpc_restore_kernel,)
 PLAIN = (lpc_restore_ref,)

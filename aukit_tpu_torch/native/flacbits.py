@@ -2,7 +2,9 @@
 — the entry points of ``aukit_tpu.native.flacbits`` that the FLAC fleet calls,
 the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with and
 ``DfpwmStreamDecoder`` routes host bytes through, the host DFPWM encode and
-QOA LMS, the routes the JAX package takes for a whole file (``chip_smoke.py``
+QOA LMS, the fused whole-file FLAC and QOA decodes (``decode_full``,
+``qoa_decode``: ``decode_flac``'s and ``decode_qoa``'s ``use_native=True``
+routes), the routes the JAX package takes for a whole file (``chip_smoke.py``
 times the kernels against them), and the stream iterators' PCM unpack and
 fused chunk DSP (``pcm_frames``, ``chunk_dsp``).
 
@@ -55,6 +57,21 @@ class _ParseResult(ctypes.Structure):
     ]
 
 
+class _DecodeResult(ctypes.Structure):
+    _fields_ = [
+        ("samples", ctypes.POINTER(ctypes.c_float)),
+        ("n", ctypes.c_int64),
+        ("error", ctypes.c_int32),
+    ]
+
+
+class _QoaDecodeResult(ctypes.Structure):
+    _fields_ = [
+        ("samples", _I32P),
+        ("n", ctypes.c_int64),
+    ]
+
+
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     h.update(SRC.read_bytes())
@@ -83,6 +100,16 @@ def _load():
                                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
     lib.flac_free.restype = None
     lib.flac_free.argtypes = [ctypes.POINTER(_ParseResult)]
+    lib.flac_decode_full.restype = ctypes.POINTER(_DecodeResult)
+    lib.flac_decode_full.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int32, ctypes.c_int32]
+    lib.flac_decode_free.restype = None
+    lib.flac_decode_free.argtypes = [ctypes.POINTER(_DecodeResult)]
+    lib.qoa_decode_full.restype = ctypes.POINTER(_QoaDecodeResult)
+    lib.qoa_decode_full.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int32, ctypes.c_int32, ctypes.c_int64]
+    lib.qoa_decode_free.restype = None
+    lib.qoa_decode_free.argtypes = [ctypes.POINTER(_QoaDecodeResult)]
     lib.flac_restore_flat.restype = None
     lib.flac_restore_flat.argtypes = [_I64P] * 7 + [ctypes.c_int64]
     lib.block_resample_rows.restype = None
@@ -128,6 +155,42 @@ def _lib():
     if lib is None:
         raise RuntimeError(f"the native FLAC parser did not build from {SRC}")
     return lib
+
+
+def decode_full(data: bytes, pos: int, channels: int, depth: int, strict: bool = True):
+    """Fused whole-file decode: parse -> restore -> decorrelate -> normalize
+    in one native pass. Returns float32[C, N] (half-scale, /2^depth).
+    Raises FlacError on malformed streams when strict."""
+    from ..codecs.flac import FlacError
+
+    lib = _lib()
+    res = lib.flac_decode_full(data, len(data), pos, channels, depth)
+    try:
+        r = res.contents
+        if r.error != 0 and strict:
+            raise FlacError(_ERRORS.get(int(r.error), f"FLAC parse error {int(r.error)}"))
+        n = int(r.n)
+        if n == 0:
+            return np.zeros((channels, 0), np.float32)
+        return np.ctypeslib.as_array(r.samples, (channels * n,)).copy().reshape(channels, n)
+    finally:
+        lib.flac_decode_free(res)
+
+
+def qoa_decode(data: bytes, pos: int, channels: int, sample_rate: int,
+               file_samples: int) -> np.ndarray:
+    """Fused whole-stream QOA decode (frame walk + slices + LMS in one native
+    pass). Returns int32[C, N] reconstructed samples."""
+    lib = _lib()
+    res = lib.qoa_decode_full(data, len(data), pos, channels, sample_rate, file_samples)
+    try:
+        n = int(res.contents.n)
+        if n == 0:
+            return np.zeros((channels, 0), np.int32)
+        return np.ctypeslib.as_array(res.contents.samples, (channels * n,)).copy().reshape(
+            channels, n)
+    finally:
+        lib.qoa_decode_free(res)
 
 
 def parse_frames(data: bytes, pos: int, channels: int, depth: int, strict: bool = True,

@@ -1,5 +1,4 @@
-"""Batched decode + DSP pipeline — counterpart of ``aukit_tpu.parallel.pipeline``
-(single device).
+"""Batched decode + DSP pipeline — counterpart of ``aukit_tpu.parallel.pipeline``.
 
 ``dsp_chain`` turns a float block at the lane's rate into 48 kHz int8:
 resample (static gather tables) -> FIR smoothing -> optional volume ramp ->
@@ -8,6 +7,11 @@ float steps run in the order of the JAX package's jitted step, and every
 multiply that XLA fuses into the add it feeds (the FIR, the volume ramp, the
 interpolators) is one ``fma_kernel`` call, so the int8 output agrees with the
 JAX engine's bit for bit.
+
+Multi-device (``make_mesh``, ``sharded_pipeline_step``): lanes split into
+shards (``parallel/mesh.py``), each decoded by kernel (a) on its own device;
+the only cross-shard operation is the optional batch peak of the normalize,
+one max over the shards' peaks on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ from ..config import CONFIG
 from ..kernels.dfpwm_cuda import dfpwm_decode_kernel
 from ..kernels.fma_cuda import fma_kernel
 from ..ops.resample import block_interp_device, sinc_weights
+from .mesh import Mesh, check_mesh, make_mesh, shard_bounds
+
+__all__ = ["Mesh", "decode_pipeline_pallas", "decode_pipeline_scan", "dsp_chain", "fir_alpha",
+           "make_mesh", "sharded_pipeline_step"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -99,7 +107,77 @@ def decode_pipeline_scan(bytes_u8: torch.Tensor, state: DfpwmState, in_rate: int
     decoded, state = dfpwm_decode_kernel(bytes_u8, state)
     f = norm8(decoded)
     if normalize_peak is not None:
-        peak = f.abs().max().clamp_min(_f32(1e-6))
-        # a true division: Python-scalar / tensor multiplies by a reciprocal
-        f = f * (torch.full_like(peak, normalize_peak) / peak)
+        f = f * _peak_scale(f.abs().max(), normalize_peak)
     return dsp_chain(f, in_rate), state
+
+
+def _peak_scale(peak: torch.Tensor, normalize_peak: float) -> torch.Tensor:
+    """The normalize multiplier of a batch peak |x| (a 0-d float32 tensor)."""
+    peak = peak.clamp_min(_f32(1e-6))
+    # a true division: Python-scalar / tensor multiplies by a reciprocal
+    return torch.full_like(peak, normalize_peak) / peak
+
+
+def decode_pipeline_pallas(bytes_u8: torch.Tensor, state: DfpwmState, in_rate: int = 48000):
+    """The flagship step through kernel (a): uint8[L, B] ->
+    (int8[L, T_out], new_state). The JAX function takes the TPU kernel's
+    grouped layout (``uint8[G, B, 32, 128]`` bytes, ``int32[G, 5, 32, 128]``
+    state, ``int8[G, T_out, 32, 128]`` out, time on axis 1); the GPU layout
+    is lane-major, so this twin takes and returns rows of lanes and a
+    ``DfpwmState``, and equals ``decode_pipeline_scan`` without its
+    normalize."""
+    decoded, state = dfpwm_decode_kernel(bytes_u8, state)
+    return dsp_chain(norm8(decoded), in_rate), state
+
+
+def shard_pipeline_fn(in_rate: int = 48000, normalize_peak: float | None = 0.9,
+                      reduce_peak=None):
+    """The sharded flagship step: ``fn(bytes, charge, strength, prev_bit,
+    prev_charge, lowpass)``, each argument a list of one tensor per shard
+    (lane rows on the shard's device), returns ``(out, charge, strength,
+    prev_bit, prev_charge, lowpass)`` in the same form. Every shard decodes
+    its rows by kernel (a); the batch peak is one max over the shards'
+    peaks on the first shard's device, passed through ``reduce_peak`` (the
+    all-reduce of a multi-process group) when given; the DSP runs on each
+    shard. Bit-equal to ``decode_pipeline_scan`` over the rows in order."""
+    def step(bytes_u8, *leaves):
+        decoded = [dfpwm_decode_kernel(b, DfpwmState(*st))
+                   for b, *st in zip(bytes_u8, *leaves)]
+        f = [norm8(d) for d, _st in decoded]
+        if normalize_peak is not None:
+            first = f[0].device
+            peak = torch.stack([x.abs().max().to(first) for x in f]).max()
+            if reduce_peak is not None:
+                peak = reduce_peak(peak)
+            scale = _peak_scale(peak, normalize_peak)
+            f = [x * scale.to(x.device) for x in f]
+        out = [dsp_chain(x, in_rate) for x in f]
+        states = [st.leaves() for _d, st in decoded]
+        return (out, *(list(leaf) for leaf in zip(*states)))
+
+    return step
+
+
+def place_rows(mesh: Mesh, rows) -> list[torch.Tensor]:
+    """``rows`` (numpy or torch, a multiple of the mesh's shards long) as one
+    tensor of contiguous rows a shard, each on its shard's device."""
+    bounds = shard_bounds(rows.shape[0], mesh.size)
+    return [torch.as_tensor(rows[lo:hi]).to(dev).contiguous()
+            for dev, (lo, hi) in zip(mesh.devices.flat, bounds)]
+
+
+def sharded_pipeline_step(mesh: Mesh, lanes: int, nbytes: int, in_rate: int = 48000):
+    """The flagship step with lanes sharded over the whole mesh, DSP local,
+    the peak-normalize's max the one cross-shard operation. Returns (fn,
+    args) as the JAX package does: ``fn(*args)`` runs one step (see
+    ``shard_pipeline_fn``); ``args`` are ``default_rng(0)`` bytes
+    uint8[lanes, nbytes] and zero states, placed as shards. ``lanes`` must
+    split evenly over the mesh."""
+    mesh = check_mesh(mesh, "sharded_pipeline_step")
+    if lanes % mesh.size:
+        raise ValueError(f"{lanes} lanes do not split over the {mesh.size}-shard mesh")
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, (lanes, nbytes), dtype=np.uint8)
+    z = np.zeros(lanes, np.int32)
+    args = (place_rows(mesh, data),) + tuple(place_rows(mesh, z) for _ in range(5))
+    return shard_pipeline_fn(in_rate, 0.9), args

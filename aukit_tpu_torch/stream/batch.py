@@ -1,5 +1,5 @@
 """Batched multi-stream decode engine — counterpart of
-``aukit_tpu.stream.batch`` on one device.
+``aukit_tpu.stream.batch``.
 
 Many independent streams are packed into fixed lanes. Lanes with equal
 ``LaneSpec`` share a *group*: one decode dispatch and one resample plan per
@@ -31,7 +31,13 @@ read theirs from each block header.
    (auplay.lua:20-31): mono toggle -> ``normalize`` gain -> one-pole
    lowpass/highpass (``set_filter``) with chunk-carried filter state. A group
    with any stage set leaves the fused DFPWM kernel for decode + stages +
-   ``dsp_chain``, as the JAX engine does.
+   ``dsp_chain``, as the JAX engine does;
+ - with a ``mesh`` (``parallel.pipeline.make_mesh``) every group pads its
+   device lanes to a multiple of the mesh's shards and each shard keeps its
+   own rows of the carried state (codec state, FIR, filter carries) and runs
+   the group's step, its kernel launches included, on its own device; the
+   step's output is gathered in lane order onto the mesh's first device.
+   No other operation crosses shards.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..config import CONFIG, get_interpolation, require_device
 from ..kernels.dfpwm_cuda import dfpwm_decode_dsp_kernel
 from ..kernels.fma_cuda import fma_kernel
 from ..ops.scan import linear_scan
+from ..parallel.mesh import check_mesh, gather_rows, lane_layout, padded_rows
 from ..parallel.pipeline import dsp_chain, fir_alpha
 from .batch_codecs import LaneSpec, _mono, build_decoder, geometry, init_state
 
@@ -343,15 +350,34 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
+class _Shard:
+    """One shard of a group: rows [lo, hi) of its padded device lanes on
+    ``device``, with the tensors the group carries across steps for them."""
+
+    def __init__(self, spec: LaneSpec, device: torch.device, lo: int, hi: int,
+                 mono: bool, out_ch: int):
+        self.device, self.lo, self.hi = device, lo, hi
+        rows = hi - lo
+        self.fir = torch.zeros((rows,) if mono else (rows, out_ch), dtype=torch.float32,
+                               device=device)
+        # the one-pole filter's carried y/x (set_filter)
+        self.filt_y = torch.zeros_like(self.fir)
+        self.filt_x = torch.zeros_like(self.fir)
+        self.state = init_state(spec, rows, device)
+
+    def rows(self, a: np.ndarray) -> torch.Tensor:
+        """This shard's rows of a host per-lane array, on its device."""
+        return torch.tensor(a[self.lo:self.hi], device=self.device)
+
+
 class _Group:
     """Lanes sharing one LaneSpec: device step + staging + output FIFO."""
 
     def __init__(self, spec: LaneSpec, slots: np.ndarray, device: torch.device,
-                 out_rate: int, mono: bool = True, mode: str = "linear"):
+                 out_rate: int, mono: bool = True, mode: str = "linear", mesh=None):
         self.spec = spec
         self.slots = slots  # external lane ids, in engine order
         self.lanes = len(slots)
-        self.device = device
         self.mono = mono
         self.mode = mode  # resample interpolation (dsp_chain, all 4 modes)
         self.out_ch = 1 if mono else spec.channels
@@ -368,28 +394,31 @@ class _Group:
         self.fusable = spec.codec == "dfpwm" and spec.sample_rate == out_rate
         self.alpha = fir_alpha(spec.sample_rate, out_rate)
         self.io = _GroupIO(self.lanes, self.in_bytes)
-        self.fir = torch.zeros((self.lanes,) if mono else (self.lanes, self.out_ch),
-                               dtype=torch.float32, device=device)
+        # a meshed group pads its device lanes to a multiple of the shards so
+        # every group shards over the whole mesh; padded lanes are masked off
+        # and dropped from the gathered output; host bookkeeping stays at the
+        # real lane count. ``device`` is where outputs land (the mesh's first)
+        self.device, self.pad, self.rows_per_shard, live = lane_layout(self.lanes, device, mesh)
+        self.dlanes = self.lanes + self.pad
+        self.shards = [_Shard(spec, dev, lo, hi, mono, self.out_ch) for dev, lo, hi in live]
         # per-lane volume: gain ramps linearly from gain0 to gain1 across each
         # lane's next chunk; gain0 == gain1 == 1 is the ungained stream
-        self.gain0 = np.ones(self.lanes, np.float32)
-        self.gain1 = np.ones(self.lanes, np.float32)
+        self.gain0 = np.ones(self.dlanes, np.float32)
+        self.gain1 = np.ones(self.dlanes, np.float32)
         # per-lane DSP stages at the lane's native rate (auplay.lua:20-31
         # order: mono -> normalize -> one-pole filter), host configuration:
         #  - lp_kind: 0 none, 1 lowpass (aukit.lua:3586), 2 highpass (:3604)
         #  - lp_a: the filter's alpha at the lane's native rate
         #  - norm_gain: whole-file normalize multiplier (``normalize``)
         #  - mono_sel: per-lane mono-mix toggle (mono=False engines)
-        # the filter's carried y/x live on the device; ``filt_started`` marks
-        # lanes whose recurrence has run (else y[0] = x[0] on the next chunk)
-        self.lp_kind = np.zeros(self.lanes, np.int32)
-        self.lp_a = np.zeros(self.lanes, np.float32)
-        self.norm_gain = np.ones(self.lanes, np.float32)
-        self.mono_sel = np.zeros(self.lanes, bool)
-        self.filt_y = torch.zeros_like(self.fir)
-        self.filt_x = torch.zeros_like(self.fir)
-        self.filt_started = np.zeros(self.lanes, bool)
-        self.state = init_state(spec, self.lanes, device)
+        # the filter's carried y/x live on the shards' devices;
+        # ``filt_started`` marks lanes whose recurrence has run (else
+        # y[0] = x[0] on the next chunk)
+        self.lp_kind = np.zeros(self.dlanes, np.int32)
+        self.lp_a = np.zeros(self.dlanes, np.float32)
+        self.norm_gain = np.ones(self.dlanes, np.float32)
+        self.mono_sel = np.zeros(self.dlanes, bool)
+        self.filt_started = np.zeros(self.dlanes, bool)
         self.samples_in = np.zeros(self.lanes, np.int64)  # input samples consumed
         self.samples_out = np.zeros(self.lanes, np.int64)  # output samples emitted
         # mixed-engine output FIFO (lockstep across the group's lanes).
@@ -402,36 +431,46 @@ class _Group:
         self.spans: collections.deque[list] = collections.deque()
         self.skip = np.zeros(self.lanes, np.int64)
 
+    def at(self, slot: int) -> tuple[_Shard, int]:
+        """The shard holding a lane, and the lane's row in it."""
+        sh = self.shards[slot // self.rows_per_shard]
+        return sh, slot - sh.lo
+
+    def _gathered(self, name: str) -> torch.Tensor:
+        return gather_rows([getattr(sh, name) for sh in self.shards], self.device, self.lanes)
+
+    # the carried tensors of every lane, gathered (read only: writes go to a shard's rows)
+    fir = property(lambda self: self._gathered("fir"))
+    filt_y = property(lambda self: self._gathered("filt_y"))
+    filt_x = property(lambda self: self._gathered("filt_x"))
+
     @property
     def with_dsp(self) -> bool:
         """Whether any lane has a DSP stage set (the JAX step's variant key)."""
         return bool(self.lp_kind.any() or self.mono_sel.any() or (self.norm_gain != 1.0).any())
-
-    def _lanes_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
 
     def _mix(self, f: torch.Tensor, msel: torch.Tensor) -> torch.Tensor:
         """The per-lane mono toggle of a per-channel block [L, C, T]: toggled
         lanes carry their channel mean on every channel."""
         return torch.where(msel[:, None, None], _mono(f)[:, None, :], f)
 
-    def _stages(self, f: torch.Tensor):
-        """The batched auplay chain on decoded floats [L, T] or [L, C, T]:
-        mono toggle -> normalize gain -> one-pole filter as a linear
-        recurrence (``linear_scan``), in the float operations of the JAX
-        step (aukit_tpu/stream/batch.py:511-546). Returns (y, new filter y,
-        new filter x) before masking."""
+    def _stages(self, sh: _Shard, f: torch.Tensor):
+        """The batched auplay chain on one shard's decoded floats [l, T] or
+        [l, C, T]: mono toggle -> normalize gain -> one-pole filter as a
+        linear recurrence (``linear_scan``), in the float operations of the
+        JAX step (aukit_tpu/stream/batch.py:511-546). Returns (y, new filter
+        y, new filter x) before masking."""
         bl = (slice(None), None) if self.mono else (slice(None), None, None)
         if not self.mono:
-            f = self._mix(f, self._lanes_dev(self.mono_sel))
-        f = f * self._lanes_dev(self.norm_gain)[bl]
-        kind = self._lanes_dev(self.lp_kind)
-        a = self._lanes_dev(self.lp_a)
+            f = self._mix(f, sh.rows(self.mono_sel))
+        f = f * sh.rows(self.norm_gain)[bl]
+        kind = sh.rows(self.lp_kind)
+        a = sh.rows(self.lp_a)
         # per-sample-0 quantities broadcast one axis less than f
         wide = (lambda v: v) if self.mono else (lambda v: v[:, None])
-        started = self._lanes_dev(self.filt_started)
+        started = sh.rows(self.filt_started)
         k1w, k2w, aw, stw = wide(kind == 1), wide(kind == 2), wide(a), wide(started)
-        sy, sx = self.filt_y, self.filt_x
+        sy, sx = sh.filt_y, sh.filt_x
         x0 = f[..., 0]
         # first-of-stream sample passes through (effects.lowpass / highpass
         # y[0] = x[0]); later chunks chain the carried state
@@ -450,80 +489,93 @@ class _Group:
         y = linear_scan(A, B)
         return y, y[..., -1], f[..., -1]
 
-    def _step(self, dev: torch.Tensor, ready: torch.Tensor, gain, with_dsp: bool):
-        """One device step: (int8[L, out_samples] or, per channel,
-        int8[L, C, out_samples]; new fir; new state). Masked lanes emit zeros
-        and keep their fir, filter carry and codec state."""
+    def _step(self, sh: _Shard, dev: torch.Tensor, ready: torch.Tensor, gain, with_dsp: bool):
+        """One device step on one shard: int8[l, out_samples] (per channel
+        int8[l, C, out_samples]); updates the shard's fir, filter carries and
+        codec state. Masked lanes emit zeros and keep their fir, filter carry
+        and codec state."""
         keep = ready if self.mono else ready[:, None]  # broadcasts over the fir's shape
         if self.fusable and not with_dsp:
-            out, new_state = dfpwm_decode_dsp_kernel(dev, self.state, self.alpha,
+            out, new_state = dfpwm_decode_dsp_kernel(dev, sh.state, self.alpha,
                                                      mask=ready, gain=gain)
             new_fir = norm8(new_state.lowpass)
             if not self.mono:  # per-channel contract: DFPWM lanes are C == 1
                 out, new_fir = out[:, None, :], new_fir[:, None]
         else:
-            f, new_state = self.decode(dev, self.state)  # [L, T] or [L, C, T]
+            f, new_state = self.decode(dev, sh.state)  # [l, T] or [l, C, T]
             if with_dsp:
-                f, new_y, new_x = self._stages(f)
-                self.filt_y = torch.where(keep, new_y, self.filt_y)
-                self.filt_x = torch.where(keep, new_x, self.filt_x)
+                f, new_y, new_x = self._stages(sh, f)
+                sh.filt_y = torch.where(keep, new_y, sh.filt_y)
+                sh.filt_x = torch.where(keep, new_x, sh.filt_x)
             if gain is not None and not self.mono:
                 gain = (gain[0][:, None], gain[1][:, None])
             out, new_fir = dsp_chain(f, self.spec.sample_rate, self.out_rate,
-                                     fir_state=self.fir, mode=self.mode, gain=gain)
+                                     fir_state=sh.fir, mode=self.mode, gain=gain)
             out = torch.where(keep[..., None], out, 0)
-        return (out, torch.where(keep, new_fir, self.fir),
-                new_state.where(ready, self.state))
+        sh.fir = torch.where(keep, new_fir, sh.fir)
+        sh.state = new_state.where(ready, sh.state)
+        return out
 
     def decode_once(self):
-        """Stage + dispatch one chunk. Returns (out_dev[lanes, T], ready,
-        underrun) or None when no lane could produce."""
+        """Stage + dispatch one chunk. Returns (out[lanes, T] on the group's
+        device, ready, underrun) or None when no lane could produce."""
         st = self.io.stage()
         if st is None:
             return None
         staged, ready, consumed, underrun = st
-        dev = _to_device(staged, self.device)
-        ready_dev = torch.tensor(ready, device=self.device)
+        return self.dispatch(staged, ready, consumed), ready, underrun
+
+    def dispatch(self, staged, ready: np.ndarray, consumed: np.ndarray) -> torch.Tensor:
+        """Run one step of the staged bytes ``uint8[lanes, in_bytes]`` on
+        every shard and advance the lanes' input counts; returns the output
+        gathered in lane order on the group's device."""
         gain = None
         if (self.gain0 != 1.0).any() or (self.gain1 != 1.0).any():
             # volume ramp: slope per output sample across this chunk's
             # nominal window; once a lane decodes, its ramp completes
-            gs = (self.gain1 - self.gain0) / np.float32(self.out_samples)
-            gain = (torch.tensor(self.gain0, device=self.device),
-                    torch.tensor(gs, device=self.device))
+            gain = (self.gain0, (self.gain1 - self.gain0) / np.float32(self.out_samples))
         with_dsp = self.with_dsp
-        out, self.fir, self.state = self._step(dev, ready_dev, gain, with_dsp)
+        ready_p = np.pad(ready, (0, self.pad)) if self.pad else ready
+        outs = []
+        for sh in self.shards:
+            dev = _to_device(padded_rows(staged, sh.lo, sh.hi), sh.device)
+            outs.append(self._step(sh, dev, sh.rows(ready_p),
+                                   None if gain is None else tuple(map(sh.rows, gain)), with_dsp))
+        n = self.lanes
         if gain is not None:
-            self.gain0 = np.where(ready, self.gain1, self.gain0)
+            self.gain0[:n] = np.where(ready, self.gain1[:n], self.gain0[:n])
         if with_dsp:
             # only filtered lanes have warmed their recurrence: a lane that
             # merely rode a DSP-active step (normalize-only, say) still gets
             # y[0] = x[0] when a filter is enabled on it later
-            self.filt_started |= ready & (self.lp_kind != 0)
+            self.filt_started[:n] |= ready & (self.lp_kind[:n] != 0)
         self.samples_in += np.where(ready, (consumed * self.in_samples) // self.in_bytes, 0)
-        return out, ready, underrun
+        return gather_rows(outs, self.device, n)
 
     def measure_peaks(self) -> np.ndarray:
         """The normalize measuring pass: decode a snapshot of the buffered
         bytes from a fresh zero codec state, apply the per-lane mono toggle,
-        and reduce each ready lane's peak |x| on the device. Returns
-        float64[L] peaks; the live buffers and state are untouched."""
+        and reduce each ready lane's peak |x| on its shard's device. Returns
+        float64[lanes] peaks; the live buffers and state are untouched."""
         io = self.io.snapshot()
-        state = init_state(self.spec, self.lanes, self.device)
-        msel = self._lanes_dev(self.mono_sel)
-        peaks = torch.zeros(self.lanes, dtype=torch.float32, device=self.device)
+        states = [init_state(self.spec, sh.hi - sh.lo, sh.device) for sh in self.shards]
+        peaks = [torch.zeros(sh.hi - sh.lo, dtype=torch.float32, device=sh.device)
+                 for sh in self.shards]
         while (st := io.stage()) is not None:
             staged, ready, _consumed, _underrun = st
-            ready_dev = self._lanes_dev(ready)
-            f, new_state = self.decode(_to_device(staged, self.device), state)
-            if not self.mono:
-                f = self._mix(f, msel)
-                m = f.abs().amax(dim=(-2, -1))
-            else:
-                m = f.abs().amax(dim=-1)
-            peaks = torch.maximum(peaks, torch.where(ready_dev, m, 0.0))
-            state = new_state.where(ready_dev, state)
-        return peaks.cpu().numpy().astype(np.float64)
+            ready_p = np.pad(ready, (0, self.pad)) if self.pad else ready
+            for i, sh in enumerate(self.shards):
+                ready_dev = sh.rows(ready_p)
+                f, new_state = self.decode(_to_device(padded_rows(staged, sh.lo, sh.hi),
+                                                      sh.device), states[i])
+                if not self.mono:
+                    f = self._mix(f, sh.rows(self.mono_sel))
+                    m = f.abs().amax(dim=(-2, -1))
+                else:
+                    m = f.abs().amax(dim=-1)
+                peaks[i] = torch.maximum(peaks[i], torch.where(ready_dev, m, 0.0))
+                states[i] = new_state.where(ready_dev, states[i])
+        return gather_rows(peaks, self.device, self.lanes).cpu().numpy().astype(np.float64)
 
     # -- mixed-engine FIFO (device-resident) --------------------------------------
     def fifo_push(self, out_dev: torch.Tensor, ready: np.ndarray):
@@ -575,11 +627,18 @@ class _Group:
 
 def engine_device(device, mesh, use_pallas, who: str) -> torch.device:
     """An engine's device, with the JAX package's ``mesh`` and
-    ``use_pallas`` slots: a mesh is not ported, and ``use_pallas=False`` (the
-    plain versions) is refused on a card."""
+    ``use_pallas`` slots. With a mesh (``parallel.pipeline.make_mesh``; any
+    other object raises TypeError) the engine's outputs land on the mesh's
+    first device, and ``device`` must name that device or its type
+    (ValueError). ``use_pallas=False`` (the plain versions) is refused on a
+    card."""
     if mesh is not None:
-        raise NotImplementedError(f"{who}(mesh=...) is not ported to aukit_tpu_torch yet "
-                                  "(ROADMAP.md queue 1, 'Multi-GPU')")
+        first = check_mesh(mesh, who).first
+        want = torch.device(device)
+        if want.type != first.type or want.index not in (None, first.index):
+            raise ValueError(f"{who}(device={str(want)!r}) conflicts with the mesh, whose "
+                             f"outputs land on {first}")
+        device = first
     device = require_device(device, who)
     if use_pallas is False and device.type == "cuda":
         raise ValueError(f"{who}(use_pallas=False): on a card the port launches its CUDA "
@@ -589,12 +648,15 @@ def engine_device(device, mesh, use_pallas, who: str) -> torch.device:
 
 class BatchStreamEngine:
     """Fixed-lane batched decoder of any ``LaneSpec`` codec to 48 kHz int8,
-    on one device.
+    on one device or sharded over a mesh.
 
     Parameters
     ----------
     specs : one LaneSpec per lane (lanes with equal specs share a group)
-    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1, "Multi-GPU")
+    mesh : optional ``parallel.pipeline.make_mesh`` mesh: every group's lanes
+        shard over all of it (each group pads to a multiple of its shards),
+        each shard steps its rows on its device, and windows are gathered
+        on the mesh's first device
     use_pallas : the JAX package's kernel switch; None or True launch the
         CUDA kernels on a card (their plain versions on the CPU), False runs
         the plain versions and is refused on a card
@@ -608,7 +670,8 @@ class BatchStreamEngine:
     interpolation : resample mode override (none/linear/cubic/sinc); None
         reads CONFIG.default_interpolation at construction
     device : keyword only: torch device the decode runs on; "cuda" (the
-        default) raises at construction when no CUDA device is present
+        default) raises at construction when no CUDA device is present; with
+        a mesh, the type (or the device) of its first device
     """
 
     def __init__(self, specs: Sequence[LaneSpec], mesh=None, use_pallas: bool | None = None,
@@ -618,6 +681,7 @@ class BatchStreamEngine:
         if not specs:
             raise ValueError("need at least one lane")
         self.device = device = engine_device(device, mesh, use_pallas, "BatchStreamEngine")
+        self.mesh = mesh
         self.lanes = len(specs)
         self.specs = specs
         self.mono = mono
@@ -633,7 +697,7 @@ class BatchStreamEngine:
                     raise ValueError("chunk_bytes overrides require a homogeneous engine")
         self.interpolation = get_interpolation(interpolation)
         self.groups = [_Group(s, np.array(slots), device, CONFIG.output_rate,
-                              mono=mono, mode=self.interpolation)
+                              mono=mono, mode=self.interpolation, mesh=mesh)
                        for s, slots in by_spec.items()]
         self._lane_map: list[tuple[int, int]] = [None] * self.lanes  # lane -> (gi, slot)
         for gi, g in enumerate(self.groups):
@@ -711,8 +775,9 @@ class BatchStreamEngine:
         else:
             raise ValueError(f"unknown filter kind {kind!r}")
         g.filt_started[slot] = False
-        g.filt_y[slot] = 0.0
-        g.filt_x[slot] = 0.0
+        sh, row = g.at(slot)
+        sh.filt_y[row] = 0.0
+        sh.filt_x[row] = 0.0
 
     def set_mono(self, lane: int, on: bool = True):
         """Per-lane mono-mix toggle for ``mono=False`` engines: the lane's
@@ -736,7 +801,7 @@ class BatchStreamEngine:
                 raise ValueError("normalize must run before stepping")
         for g in self.groups:
             peaks = g.measure_peaks()
-            g.norm_gain[:] = np.where(peaks > 0, peak / peaks, 1.0).astype(np.float32)
+            g.norm_gain[:g.lanes] = np.where(peaks > 0, peak / peaks, 1.0).astype(np.float32)
 
     @property
     def active(self) -> np.ndarray:
@@ -836,20 +901,21 @@ class BatchStreamEngine:
                 "heterogeneous checkpoint requires a window boundary: the "
                 f"lane's group FIFO holds {g.fill} undelivered samples "
                 "(step() until the group drains, or checkpoint a finished lane)")
+        sh, row = g.at(slot)
         return {
             "byte_offset": int(g.samples_in[slot] * g.in_bytes // g.in_samples),
             "pending": g.io.pending_bytes(slot),
             "eof": bool(g.io.eof[slot]),
-            "codec_state": [np.int32(leaf[slot].item()) for leaf in g.state.leaves()],
+            "codec_state": [np.int32(leaf[row].item()) for leaf in sh.state.leaves()],
             # mono: a float; mono=False: an f32[C] row
-            "fir_state": self._row(g.fir[slot]),
+            "fir_state": self._row(sh.fir[row]),
             "volume": (float(g.gain0[slot]), float(g.gain1[slot])),
             "dsp": {
                 "kind": int(g.lp_kind[slot]), "alpha": float(g.lp_a[slot]),
                 "norm_gain": float(g.norm_gain[slot]),
                 "mono": bool(g.mono_sel[slot]),
                 "started": bool(g.filt_started[slot]),
-                "y": self._row(g.filt_y[slot]), "x": self._row(g.filt_x[slot]),
+                "y": self._row(sh.filt_y[row]), "x": self._row(sh.filt_x[row]),
             },
         }
 
@@ -867,13 +933,14 @@ class BatchStreamEngine:
         g.skip[slot] = g.fill
         g.samples_in[slot] = ckpt["byte_offset"] * g.in_samples // g.in_bytes
         g.io.replace_lane(slot, ckpt["pending"], ckpt["eof"])
-        # the group owns its state, fir and filter tensors (every step makes
-        # new ones), so one lane's row is written in place; a stateless
+        # the lane's shard owns its state, fir and filter tensors (every step
+        # makes new ones), so the lane's row is written in place; a stateless
         # codec's state has no leaves
+        sh, row = g.at(slot)
         cs = ckpt.get("codec_state")  # None/absent -> zero the lane's state
-        for i, leaf in enumerate(g.state.leaves()):
-            leaf[slot] = int(cs[i]) if cs is not None else 0
-        g.fir[slot] = self._lane_row(ckpt.get("fir_state", 0.0))
+        for i, leaf in enumerate(sh.state.leaves()):
+            leaf[row] = int(cs[i]) if cs is not None else 0
+        sh.fir[row] = self._lane_row(ckpt.get("fir_state", 0.0))
         g.gain0[slot], g.gain1[slot] = ckpt.get("volume", (1.0, 1.0))
         dsp = ckpt.get("dsp") or {}
         g.lp_kind[slot] = dsp.get("kind", 0)
@@ -881,8 +948,8 @@ class BatchStreamEngine:
         g.norm_gain[slot] = dsp.get("norm_gain", 1.0)
         g.mono_sel[slot] = dsp.get("mono", False)
         g.filt_started[slot] = dsp.get("started", False)
-        g.filt_y[slot] = self._lane_row(dsp.get("y", 0.0))
-        g.filt_x[slot] = self._lane_row(dsp.get("x", 0.0))
+        sh.filt_y[row] = self._lane_row(dsp.get("y", 0.0))
+        sh.filt_x[row] = self._lane_row(dsp.get("x", 0.0))
 
     @staticmethod
     def _lane_row(v) -> torch.Tensor:

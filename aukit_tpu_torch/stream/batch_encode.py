@@ -1,5 +1,5 @@
 """Batched multi-stream encoder engine — counterpart of
-``aukit_tpu.stream.batch_encode``, the write path on one device (the
+``aukit_tpu.stream.batch_encode``, the write path (the
 reference's encode surface is Audio:pcm / Audio:wav / Audio:dfpwm,
 aukit.lua:868-1018, and auconvert's decode -> write pipeline,
 auconvert.lua:412-419).
@@ -32,8 +32,11 @@ Outputs per step: (bytes uint8[L, Bmax] tensor on the engine's device, nbytes
 int64[L] valid bytes per lane, mask bool[L], positions float64[L] seconds at
 chunk start). DFPWM lanes emit whole bytes only (aukit.lua:1009).
 
-Not ported: ``mesh`` (``NotImplementedError``; ROADMAP.md queue 1,
-"Multi-GPU").
+With a ``mesh`` (``parallel.pipeline.make_mesh``) every group pads its
+lanes to a multiple of the mesh's shards, as the decode engine does: each
+shard keeps its rows of the encoder state and encodes them on its device
+(kernel (c) for DFPWM lanes), a window is split into the shards' rows where
+it arrives, and the bytes are gathered on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from ..codecs.dfpwm import DfpwmState
 from ..kernels.dfpwm_cuda import dfpwm_encode_kernel
 from ..kernels.fma_cuda import fma_kernel
 from ..ops.pcmcode import denormalize_pcm
+from ..parallel.mesh import gather_rows, lane_layout, padded_rows
 from .batch import BatchMetrics, _GroupIO, _to_device, engine_device
 from .batch_codecs import NoState
 
@@ -174,14 +178,26 @@ def float_to_target_ints(samples, codec: str) -> np.ndarray:
     return np.trunc(scaled).astype(np.int64).astype(np.int32)
 
 
+class _EncShard:
+    """One shard of an encode group: rows [lo, hi) of its padded lanes on
+    ``device``, with their encoder state."""
+
+    def __init__(self, device: torch.device, lo: int, hi: int, stateful: bool):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.state = DfpwmState.zeros(hi - lo, device) if stateful else NoState()
+
+    def rows(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a[self.lo:self.hi], device=self.device)
+
+
 class _EncGroup:
     """Encode lanes sharing one EncodeSpec: device step + host FIFO."""
 
-    def __init__(self, spec: EncodeSpec, slots: np.ndarray, device: torch.device, chunk: int):
+    def __init__(self, spec: EncodeSpec, slots: np.ndarray, device: torch.device, chunk: int,
+                 mesh=None):
         self.spec = spec
         self.slots = slots
         self.lanes = len(slots)
-        self.device = device
         self.chunk = chunk
         depth = _DEPTH.get(spec.codec, 8)
         self.bytes_per_frame = (spec.channels if spec.codec == "dfpwm"
@@ -192,28 +208,44 @@ class _EncGroup:
         if spec.codec == "dfpwm" and lv % 8:
             raise ValueError("dfpwm lanes need chunk*channels % 8 == 0")
         self.stateful = spec.codec == "dfpwm"
-        self.state = DfpwmState.zeros(self.lanes, device) if self.stateful else NoState()
-        self.gain0 = np.ones(self.lanes, np.float32)
-        self.gain1 = np.ones(self.lanes, np.float32)
+        # a meshed group pads its lanes to a multiple of the shards (masked
+        # off, dropped from the output); ``device`` is where the bytes land
+        # (the mesh's first)
+        self.device, self.pad, self.rows_per_shard, live = lane_layout(self.lanes, device, mesh)
+        self.dlanes = self.lanes + self.pad
+        self.shards = [_EncShard(dev, lo, hi, self.stateful) for dev, lo, hi in live]
+        # the lookup table on each shard's device; DFPWM levels fit int8,
+        # the encode kernel's input type
+        lut = torch.tensor(_int8_lut(spec.codec),
+                           dtype=torch.int8 if self.stateful else torch.int32)
+        self._luts = {t.device: t for t in (lut.to(sh.device) for sh in self.shards)}
+        self._lut = lut.to(self.device)
+        self.gain0 = np.ones(self.dlanes, np.float32)
+        self.gain1 = np.ones(self.dlanes, np.float32)
         self.samples_in = np.zeros(self.lanes, np.int64)
         # host float-feed FIFO: per-lane deques of int32 [C, k] pending vals
         self.pend = [collections.deque() for _ in range(self.lanes)]
         self.sizes = np.zeros(self.lanes, np.int64)
         self.eof = np.zeros(self.lanes, bool)
-        # DFPWM levels fit int8, the encode kernel's input type
-        self._lut = torch.tensor(_int8_lut(spec.codec), device=device,
-                                 dtype=torch.int8 if self.stateful else torch.int32)
 
-    def codec_state(self) -> tuple[torch.Tensor, ...]:
-        """The encoder's state leaves: (charge, strength, previous bit), or ()."""
-        return self.state.leaves()[:3]
+    def at(self, slot: int) -> tuple[_EncShard, int]:
+        """The shard holding a lane, and the lane's row in it."""
+        sh = self.shards[slot // self.rows_per_shard]
+        return sh, slot - sh.lo
+
+    def codec_state(self, slot: int) -> tuple[tuple[torch.Tensor, ...], int]:
+        """The encoder's state leaves holding a lane ((charge, strength,
+        previous bit), or ()) and the lane's row in them."""
+        sh, row = self.at(slot)
+        return sh.state.leaves()[:3], row
 
     # -- the device step ------------------------------------------------------
-    def _encode_core(self, vals: torch.Tensor, ready: torch.Tensor) -> torch.Tensor:
-        """vals int [l, C, T] target ints -> bytes uint8[l, B]; advances the
-        DFPWM state of ready lanes. Channels interleave per frame as in the
-        solo interleaved writers (Audio:wav/Audio:dfpwm, aukit.lua:942/1005).
-        Masked lanes emit zeros and keep their state."""
+    def _encode_core(self, sh: _EncShard, vals: torch.Tensor,
+                     ready: torch.Tensor) -> torch.Tensor:
+        """vals int [l, C, T] target ints of one shard -> bytes uint8[l, B];
+        advances the shard's DFPWM state of ready lanes. Channels interleave
+        per frame as in the solo interleaved writers (Audio:wav/Audio:dfpwm,
+        aukit.lua:942/1005). Masked lanes emit zeros and keep their state."""
         lanes = vals.shape[0]
         flat = vals.movedim(1, 2).reshape(lanes, -1)  # frame-interleaved
         if self.stateful:
@@ -222,8 +254,8 @@ class _EncGroup:
                 # level does (the charge stays within [-128, 127]), so the
                 # int32 levels of an unclipped float feed narrow by clamping
                 flat = flat.clamp(-128, 127).to(torch.int8)
-            enc, new_state = dfpwm_encode_kernel(flat.contiguous(), self.state)
-            self.state = new_state.where(ready, self.state)
+            enc, new_state = dfpwm_encode_kernel(flat.contiguous(), sh.state)
+            sh.state = new_state.where(ready, sh.state)
             return torch.where(ready[:, None], enc, 0)
         nb = _DEPTH[self.spec.codec] // 8
         # the low bytes of the two's-complement value, little-endian: pack_pcm
@@ -239,7 +271,7 @@ class _EncGroup:
         ``g0 + slope*t`` and, for pcm8, the ``d*127 + 128`` bias. The clip
         to [-1, 1] keeps |gain*x| > 1 from wrapping in the int cast."""
         if gain is None:
-            return self._lut[x.to(torch.int32) + 128]
+            return self._luts[x.device][x.to(torch.int32) + 128]
         depth = _DEPTH.get(self.spec.codec, 8)
         mv = 128.0 if self.spec.codec == "dfpwm" else float(1 << (depth - 1))
         top = float(np.float32(mv) - np.float32(1.0))  # 2**31 - 1 rounds to 2**31
@@ -255,21 +287,27 @@ class _EncGroup:
         return scaled.to(torch.int64).clamp(-(1 << 31), (1 << 31) - 1).to(torch.int32)
 
     def dispatch(self, x, ready: np.ndarray, kind: str) -> torch.Tensor:
-        """Run one step on ``x``: "vals" (host-converted int32 [l, C, T]) or
-        "win" (int8 windows [l, C, T], converted on the device)."""
-        dev = _to_device(x, self.device)
-        ready_dev = torch.tensor(ready, device=self.device)
-        if kind == "vals":
-            return self._encode_core(dev, ready_dev)
+        """Run one step on ``x`` [lanes, C, T]: "vals" (host-converted int32)
+        or "win" (int8 windows, converted on the device), each shard on its
+        rows; returns the bytes gathered on the group's device."""
         gain = None
-        if (self.gain0 != 1.0).any() or (self.gain1 != 1.0).any():
-            gs = (self.gain1 - self.gain0) / np.float32(dev.shape[-1])
-            # torch.tensor copies the host array before it returns, so the
-            # hand-over of gain0 below cannot race the transfer
-            gain = (torch.tensor(self.gain0, device=self.device),
-                    torch.tensor(gs, device=self.device))
-            self.gain0 = np.where(ready, self.gain1, self.gain0)
-        return self._encode_core(self._window_vals(dev, gain), ready_dev)
+        if kind == "win" and ((self.gain0 != 1.0).any() or (self.gain1 != 1.0).any()):
+            gs = (self.gain1 - self.gain0) / np.float32(x.shape[-1])
+            gain = (self.gain0, gs)
+        ready_p = np.pad(ready, (0, self.pad)) if self.pad else ready
+        outs = []
+        for sh in self.shards:
+            dev = _to_device(padded_rows(x, sh.lo, sh.hi), sh.device)
+            ready_dev = sh.rows(ready_p)
+            if kind == "win":
+                # torch.tensor copies the host rows before it returns, so the
+                # hand-over of gain0 below cannot race the transfer
+                dev = self._window_vals(dev, None if gain is None else tuple(map(sh.rows, gain)))
+            outs.append(self._encode_core(sh, dev, ready_dev))
+        if gain is not None:
+            n = self.lanes
+            self.gain0[:n] = np.where(ready, self.gain1[:n], self.gain0[:n])
+        return gather_rows(outs, self.device, self.lanes)
 
     # -- host float FIFO ------------------------------------------------------
     def feed_lane(self, slot: int, samples):
@@ -322,15 +360,16 @@ class _EncGroup:
 
 
 class BatchEncodeEngine:
-    """Fixed-lane batched float/int8 -> encoded-bytes engine on one device
-    (see the module docstring).
+    """Fixed-lane batched float/int8 -> encoded-bytes engine, on one device
+    or sharded over a mesh (see the module docstring).
 
     Parameters
     ----------
     specs : one EncodeSpec per lane (equal specs share a dispatch)
     chunk_samples : per-channel samples consumed per host-fed step (the
         window length for ``encode_windows`` is taken from the tensor)
-    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1, "Multi-GPU")
+    mesh : optional ``parallel.pipeline.make_mesh`` mesh: every group's lanes
+        shard over all of it, the bytes are gathered on its first device
     use_pallas : the JAX package's kernel switch; None or True launch the
         CUDA kernels on a card, False runs the plain versions and is refused
         on a card
@@ -344,6 +383,7 @@ class BatchEncodeEngine:
         if not specs:
             raise ValueError("need at least one lane")
         self.device = engine_device(device, mesh, use_pallas, "BatchEncodeEngine")
+        self.mesh = mesh
         self._side_stream = None  # made by encode_windows_many on a CUDA device
         self.specs = specs
         self.lanes = len(specs)
@@ -351,7 +391,7 @@ class BatchEncodeEngine:
         by_spec: dict[EncodeSpec, list[int]] = {}
         for i, s in enumerate(specs):
             by_spec.setdefault(s, []).append(i)
-        self.groups = [_EncGroup(s, np.array(slots), self.device, chunk_samples)
+        self.groups = [_EncGroup(s, np.array(slots), self.device, chunk_samples, mesh)
                        for s, slots in by_spec.items()]
         self._lane_map: list[tuple[int, int]] = [None] * self.lanes
         for gi, g in enumerate(self.groups):
@@ -493,9 +533,10 @@ class BatchEncodeEngine:
         g = self.groups[gi]
         pend = (np.concatenate(list(g.pend[slot]), axis=1)
                 if g.pend[slot] else np.zeros((g.spec.channels, 0), np.int32))
+        leaves, row = g.codec_state(slot)
         return {
             "samples_in": int(g.samples_in[slot]),
-            "codec_state": [int(leaf[slot]) for leaf in g.codec_state()],
+            "codec_state": [int(leaf[row]) for leaf in leaves],
             "volume": (float(g.gain0[slot]), float(g.gain1[slot])),
             "pending": pend,
             "eof": bool(g.eof[slot]),
@@ -507,11 +548,12 @@ class BatchEncodeEngine:
         gi, slot = self._lane_map[lane]
         g = self.groups[gi]
         g.samples_in[slot] = ckpt["samples_in"]
-        # the group owns its state tensors (every step makes new ones), so
-        # one lane's row is written in place
-        cs = ckpt.get("codec_state") or [0] * len(g.codec_state())
-        for leaf, v in zip(g.codec_state(), cs):
-            leaf[slot] = int(v)
+        # the lane's shard owns its state tensors (every step makes new
+        # ones), so the lane's row is written in place
+        leaves, row = g.codec_state(slot)
+        cs = ckpt.get("codec_state") or [0] * len(leaves)
+        for leaf, v in zip(leaves, cs):
+            leaf[row] = int(v)
         g.gain0[slot], g.gain1[slot] = ckpt.get("volume", (1.0, 1.0))
         pend = np.asarray(ckpt.get("pending", np.zeros((g.spec.channels, 0), np.int32)))
         g.pend[slot] = collections.deque([pend] if pend.shape[1] else [])

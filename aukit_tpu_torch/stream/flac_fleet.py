@@ -33,6 +33,11 @@ Three routes, as in the JAX package:
 
 The device routes run on ``device``: on a card they launch the kernels; on
 the CPU the kernels' plain versions run (the JAX package's interpret mode).
+With a ``mesh`` (``parallel.pipeline.make_mesh``) the restore rows of a step
+(every route, for streams of depth <= 24; an explicit ``device_restore=False``
+keeps the host restore) and the block lowpass rows split over its shards,
+each launching kernel (g) or (h) on its device with zero collectives; the
+rest of a device step runs on the mesh's first device, ``device``.
 Their float32 arithmetic follows the JAX package's jitted code as XLA
 compiles it, fused multiply-adds included (``fma_kernel``), so their
 windows equal the JAX device routes'; they are within 5e-3 of the host
@@ -57,8 +62,9 @@ from ..kernels.flac_cuda import lpc_restore_kernel, order_bucket
 from ..kernels.fma_cuda import fma_kernel as fma
 from ..kernels.iir_cuda import iir_zero_kernel
 from ..ops.resample import block_interp_device
+from ..parallel.mesh import Mesh, device_mesh, sharded_rows
 from ..parallel.pipeline import fir_alpha
-from .batch import BatchMetrics
+from .batch import BatchMetrics, engine_device
 from .engine import block_resample_plan, iir_lowpass_scan, lua_block_resample
 
 __all__ = ["FlacFleet"]
@@ -110,7 +116,8 @@ def frames_to_float(restored: torch.Tensor, wasted: torch.Tensor, nsubs: int, as
 
 
 def block_iir_scale(res: torch.Tensor, idx: np.ndarray, tvalid: np.ndarray,
-                    state: np.ndarray, gains: np.ndarray, alpha: float, out_mode: str):
+                    state: np.ndarray, gains: np.ndarray, alpha: float, out_mode: str,
+                    mesh: Mesh):
     """The block lowpass, chain, gain line and scale of one geometry group —
     ``_device_block_iir_scale_fn`` of the JAX package. ``res`` f32[P, C,
     out_len] resampled blocks on the device; ``idx`` int[Lb, m] each lane's
@@ -119,7 +126,9 @@ def block_iir_scale(res: torch.Tensor, idx: np.ndarray, tvalid: np.ndarray,
     states; ``gains`` f32[4, Lb] (g0, g1, done, span) per lane. Returns
     (scaled f32[Lb, (C,) m*out_len], new_state f32[Lb, C]) on the device.
 
-    Every block runs the lowpass from zero state in one kernel (h) call.
+    Every block runs the lowpass from zero state in one kernel (h) call a
+    shard of ``mesh`` (its channel rows padded to a multiple of the shards;
+    ``device_mesh`` for one call on ``res``'s device).
     Block r's incoming state then follows ``s_{r+1} = fin0_r + c^out_len *
     s_r`` (fin0: the zero-state block's last sample; the decay factor is
     usually exactly 0.0 in float32, and the chain a shift), and each block
@@ -130,7 +139,8 @@ def block_iir_scale(res: torch.Tensor, idx: np.ndarray, tvalid: np.ndarray,
     c = np.float32(1.0 - alpha)
     decay = np.cumprod(np.full(out_len, c, dtype=np.float32), dtype=np.float32)  # c^(t+1)
     dN = float(decay[-1])
-    y0 = iir_zero_kernel(res.reshape(P * C, out_len), alpha).reshape(P, C, out_len)
+    y0 = sharded_rows(mesh, lambda rows: iir_zero_kernel(rows, alpha),
+                      [res.reshape(P * C, out_len)], P * C).reshape(P, C, out_len)
     idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
     yb = y0[idx_t]  # [Lb, m, C, out_len]
     fb = y0[..., -1][idx_t]  # [Lb, m, C]
@@ -206,14 +216,17 @@ class FlacFleet:
     device_restore : the batched LPC restore on ``device`` through kernel (g)
         (True), on the host (False), or the default (None): the host on the
         host and staged routes, the device on the device-resident route.
-    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1, "Multi-GPU").
+    mesh : optional ``parallel.pipeline.make_mesh`` mesh: the restore and the
+        block lowpass rows shard over it (see the module docstring); the
+        fleet's device routes run on its first device.
     device_dsp : run the DSP (and, unless ``device_restore=False``, the
         restore) on ``device``; see the module docstring for the routes.
     mono : True mixes windows to one channel; False keeps ``channels``.
     channels : the fleet's channel capacity with ``mono=False``.
     interpolation : resample mode, ``CONFIG.default_interpolation`` when None.
     device : torch device of the device routes. ``"cuda"`` without a card
-        raises here when a device route is asked for.
+        raises here when a device route is asked for; with a mesh, the type
+        (or the device) of its first device.
 
     Each lane carries its own format (rate/channels/depth parsed from its own
     ``fLaC`` header), so a fleet may mix files freely; malformed lanes are
@@ -226,9 +239,8 @@ class FlacFleet:
         if lanes < 1:
             raise ValueError("need at least one lane")
         if mesh is not None:
-            raise NotImplementedError(
-                "FlacFleet(mesh=...) is not ported to aukit_tpu_torch yet "
-                "(ROADMAP.md queue 1, 'Multi-GPU')")
+            device = engine_device(device, mesh, None, "FlacFleet")
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -429,17 +441,16 @@ class FlacFleet:
         S = len(orders)
         F = S // nsubs
 
-        def rows(a):  # host int array -> int32 tensor on the device
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
         K = order_bucket(int(orders.max()))
-        coefs = np.concatenate([p[3] for p in parsed])[:, :K]
-        restored = lpc_restore_kernel(
-            rows(np.concatenate([p[4] for p in parsed]).reshape(S, n)), rows(orders),
-            rows(np.concatenate([p[2]["shift"] for p in parsed])),
-            rows(np.full(S, n)), rows(coefs), K=K)
-        dec = frames_to_float(restored, rows(np.concatenate([p[2]["wasted"] for p in parsed])),
-                              nsubs, asgn, depth)
+        meta = [np.ascontiguousarray(np.concatenate([p[2][k] for p in parsed]), np.int32)
+                for k in ("shift", "wasted")]
+        args = [np.concatenate([p[4] for p in parsed]).astype(np.int32).reshape(S, n),
+                orders.astype(np.int32), meta[0], np.full(S, n, np.int32),
+                np.concatenate([p[3] for p in parsed])[:, :K].astype(np.int32)]
+        # one restore a shard; the frames are joined after the gather
+        restored = sharded_rows(self.mesh or device_mesh(dev),
+                                lambda *a: lpc_restore_kernel(*a, K=K), args, S)
+        dec = frames_to_float(restored, torch.from_numpy(meta[1]).to(dev), nsubs, asgn, depth)
         fcounts = [len(p[1]) for p in parsed]
         fstarts = np.concatenate([[0], np.cumsum(fcounts)])
         if _is_identity(n, out_len, ffx0, exact):
@@ -479,7 +490,8 @@ class FlacFleet:
             tval[i] = len(rows[li]) * out_len
             ls[i] = self._lanes[li].ls
             gains[:, i] = self._gain_params(self._lanes[li])
-        scaled, new_state = block_iir_scale(res, idx, tval, ls, gains, alpha, self._out_mode(C))
+        scaled, new_state = block_iir_scale(res, idx, tval, ls, gains, alpha, self._out_mode(C),
+                                            self.mesh or device_mesh(self.device))
         scaled, new_state = scaled.cpu().numpy(), new_state.cpu().numpy()
         out = {}
         for i, li in enumerate(lanes):
@@ -539,8 +551,9 @@ class FlacFleet:
         coefs_all = np.concatenate([p[3] for p in parsed])
         values_all = np.concatenate([p[4] for p in parsed])
         depth_max = max(self._lanes[p[0]].depth for p in parsed)
-        restored = flac_codec.restore_flat(sub_all, coefs_all, values_all, depth_max,
-                                           device=self.device_restore, on=self.device)
+        restored = flac_codec.restore_flat(
+            sub_all, coefs_all, values_all, depth_max, device=self.device_restore,
+            mesh=self.mesh if depth_max <= flac_codec.DEVICE_MAX_DEPTH else None, on=self.device)
         voffs = np.concatenate(
             [[0], np.cumsum([int(p[2]["block"].sum()) for p in parsed])])
 

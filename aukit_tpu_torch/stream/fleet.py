@@ -166,8 +166,9 @@ class Fleet:
         ``device_dsp=True`` runs their restore and DSP on the device
     device : keyword only: torch device of both engines and of the windows;
         "cuda" (the default) raises when no CUDA device is present
-    mesh : not ported (``NotImplementedError``; ROADMAP.md queue 1,
-        "Multi-GPU")
+    mesh : optional ``parallel.pipeline.make_mesh`` mesh, forwarded to both
+        engines (their lanes shard over it); the windows and their merge are
+        on its first device, ``device``
     """
 
     def __init__(self, sources, eof: bool = True, mesh=None, mono: bool = True,
@@ -209,14 +210,14 @@ class Fleet:
             initial.append(data)
         self.engine = None
         if specs:
-            self.engine = BatchStreamEngine(specs, use_pallas=use_pallas, mono=mono,
+            self.engine = BatchStreamEngine(specs, mesh, use_pallas=use_pallas, mono=mono,
                                             windowed=True, interpolation=interpolation,
                                             device=device)
         self.flac = None
         if n_flac:
-            self.flac = FlacFleet(n_flac, device_restore=device_restore, device_dsp=device_dsp,
-                                  mono=mono, channels=channels, interpolation=interpolation,
-                                  device=device)
+            self.flac = FlacFleet(n_flac, device_restore=device_restore, mesh=mesh,
+                                  device_dsp=device_dsp, mono=mono, channels=channels,
+                                  interpolation=interpolation, device=device)
         # device-merge plan: station i's window lives at row perm[i] of the
         # concat [engine lanes | FLAC lanes | MDFPWM merged]; mdf_l/mdf_r
         # list the engine lanes each MDFPWM station floor-means

@@ -19,27 +19,36 @@ with every other effect on a stereo track, and every single-stream iterator
 over those 3-minute files with stream.pcm's device twin on the card; and
 the four programs and playback: auplay and austream on those files, play
 and player over the twin's CUDA chunks, austream --fleet over 3072 stations
-and auconvert --fleet of 3072 inputs, auconvert's test cases and play_file),
-and times the kernels, each beside its bound on the card, also at the
+and auconvert --fleet of 3072 inputs, auconvert's test cases and play_file;
+and the multi-device layer: the 32768-lane DFPWM engine over four lane
+shards of one card (and over every card where there are two or more),
+sharded_pipeline_step, sharded check-size engines of every kind and
+MultiHostEngine in two processes over gloo, each equal to its unsharded card
+run), and times the kernels, each beside its bound on the card, also at the
 whole-file loaders' and the iterators' shapes. Each phase prints its lines
 (and its seconds on the closing ``[phase_seconds]`` line); any failure
 raises, so the exit code is non-zero and the closing result line is not
 printed. It exits non-zero at once without a CUDA device.
 Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
 struct only), tests/torch_kernel_cases.py and tests/torch_tracks.py (both
-numpy, torch and aukit_tpu_torch only), each by path.
+numpy, torch and aukit_tpu_torch only), each by path; it runs
+tests/torch_dist_worker.py (torch, numpy and aukit_tpu_torch only) in two
+processes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import importlib.util
 import json
 import os
 import re
+import socket
 import struct
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -67,7 +76,8 @@ from aukit_tpu_torch.native import flacbits
 from aukit_tpu_torch.ops import resample as ores
 from aukit_tpu_torch.ops import scan as oscan
 from aukit_tpu_torch.ops.resample import resample_plan
-from aukit_tpu_torch.parallel.pipeline import fir_alpha
+from aukit_tpu_torch.parallel import pipeline as sp
+from aukit_tpu_torch.parallel.pipeline import fir_alpha, make_mesh
 from aukit_tpu_torch.stream import batch as sb
 from aukit_tpu_torch.stream import batch_codecs as bc
 from aukit_tpu_torch.stream import engine as sengine
@@ -1820,6 +1830,10 @@ def phase_flac_times() -> dict:
 TRANSCODE_MONO = 16384  # 48 kHz mono PCM16 lanes (bench.py:670-688's stream at fleet width)
 TRANSCODE_STEREO = 8192  # 44.1 kHz stereo PCM16 lanes
 TRANSCODE_SECONDS = 3
+# windows of the picked lanes the CPU engines transcode too: the first two of
+# TRANSCODE_SECONDS, the encoders' state carried across one window (cut from
+# all three to fit [multi_gpu]'s replays; the CPU encode costs ~15 s a window)
+TRANSCODE_CPU_WINDOWS = 2
 TRANSCODE_CHECK = 2  # lanes of each kind that the CPU engines transcode too: the first and last
 ENCODE_CHECK_LANES = 512  # lanes of the 48000-sample kernel-vs-plain case from a random state
 
@@ -1930,17 +1944,18 @@ def transcode_step(engines):
                                       (enc_p, ws, mask_s)]))
 
 
-def run_transcode(device: str, mono_rows, stereo_rows, pick_m, pick_s):
-    """Bulk-feed and run the transcode on ``device``. -> (every step's
-    (bytes, nbytes, mask, positions) of the picked lanes of each encoder,
-    the first step's full DFPWM outputs, the engines)."""
+def run_transcode(device: str, mono_rows, stereo_rows, pick_m, pick_s, windows=None):
+    """Bulk-feed and run the transcode on ``device``, all of it or its first
+    ``windows`` windows. -> (every step's (bytes, nbytes, mask, positions)
+    of the picked lanes of each encoder, the first step's full DFPWM
+    outputs, the engines)."""
     engines = transcode_engines(device, len(mono_rows), len(stereo_rows))
     engines[0].feed_array(mono_rows)
     engines[1].feed_array(stereo_rows)
     picks = (pick_m, pick_s, pick_s)
     picks_dev = [torch.tensor(p, device=device) for p in picks]
     steps, first = [], None
-    while (r := transcode_step(engines)) is not None:
+    while len(steps) != windows and (r := transcode_step(engines)) is not None:
         if first is None:
             first = (r[0][0], r[1][0])
         steps.append([(out[pd].cpu().numpy(), nbytes[p], mask[p], pos[p])
@@ -1956,7 +1971,8 @@ def phase_transcode() -> dict:
     windows (``mono=True`` and ``mono=False``) and encoded device-to-device
     into mono DFPWM, interleaved stereo DFPWM and stereo pcm16. Launch counts
     are zeroed just before and read just after. Then: TRANSCODE_CHECK lanes
-    of each kind against the same engines on the CPU, bit for bit; the
+    of each kind against the same engines on the CPU over the first
+    TRANSCODE_CPU_WINDOWS windows, bit for bit; the
     first window's DFPWM bytes decoded by kernel (a) against the source
     tones; the pcm16 bytes' layout. Returns the launch counts."""
     rng = np.random.default_rng(18)
@@ -2000,8 +2016,9 @@ def phase_transcode() -> dict:
     # the picked lanes on the CPU: the plain versions, bit for bit
     t0 = time.perf_counter()
     want, _, _ = run_transcode("cpu", mono_rows[pick_m], stereo_rows[pick_s],
-                               np.arange(TRANSCODE_CHECK), np.arange(TRANSCODE_CHECK))
-    check(len(want) == len(steps), "the CPU engines take as many steps")
+                               np.arange(TRANSCODE_CHECK), np.arange(TRANSCODE_CHECK),
+                               TRANSCODE_CPU_WINDOWS)
+    check(len(want) == TRANSCODE_CPU_WINDOWS, "the CPU engines take their windows")
     for got_step, want_step in zip(steps, want):
         for got, ref in zip(got_step, want_step):
             check(all(np.array_equal(a, b) for a, b in zip(got, ref, strict=True)),
@@ -2018,7 +2035,7 @@ def phase_transcode() -> dict:
     frames = np.frombuffer(steps[1][2][0][0].tobytes(), "<i2").reshape(-1, 2).astype(np.float64)
     pcm_corr = float(np.corrcoef(frames[:, 0], np.sin(
         2 * np.pi * float(freq_s[pick_s[0]]) * (48000 + np.arange(48000)) / 48000))[0, 1])
-    say("transcode_output", lanes_equal_cpu=2 * TRANSCODE_CHECK, compared_windows=len(steps),
+    say("transcode_output", lanes_equal_cpu=2 * TRANSCODE_CHECK, compared_windows=len(want),
         cpu_seconds=round(time.perf_counter() - t0, 3),
         mono_corr_min=round(float(corr_m.min()), 4), mono_corr_median=round(float(corr_m.median()), 4),
         stereo_corr_min=round(float(corr_s.min()), 4),
@@ -2214,6 +2231,7 @@ AUPLAY_SECONDS = 3
 ENGINE_DSP_PER_SPEC = 8  # lanes of each of the six specs CUDA and CPU both decode
 FLEET_STATIONS = 3072  # bench.py:600-640's station mix (48 on its TPU run) at 64x
 FLEET_SECONDS = 10
+CLI_FLEET_SECONDS = 3  # the --fleet programs' files (cut from 10 s to fit [multi_gpu]'s replays)
 FLEET_CHECK_STATIONS = 48
 
 
@@ -2667,14 +2685,14 @@ def phase_fleet_check() -> dict:
     return counts
 
 
-def fleet_main_sources(fx):
+def fleet_main_sources(fx, seconds: int = FLEET_SECONDS):
     """bench.py:620-629 at FLEET_STATIONS: one third FLAC 48 kHz mono, one
-    third raw DFPWM 48 kHz, one third IMA-in-WAV at 16 kHz, FLEET_SECONDS
+    third raw DFPWM 48 kHz, one third IMA-in-WAV at 16 kHz, ``seconds``
     each, in turn."""
     rng = np.random.default_rng(61)
-    fl = fleet_flac_stream(fx, rng, FLEET_SECONDS)
-    df = (LaneSpec("dfpwm", 48000), rng.integers(0, 256, FLEET_SECONDS * 6000, np.uint8).tobytes())
-    wav = ima_wav(rng, FLEET_SECONDS)
+    fl = fleet_flac_stream(fx, rng, seconds)
+    df = (LaneSpec("dfpwm", 48000), rng.integers(0, 256, seconds * 6000, np.uint8).tobytes())
+    wav = ima_wav(rng, seconds)
     return [(fl, df, wav)[i % 3] for i in range(FLEET_STATIONS)]
 
 
@@ -2799,7 +2817,8 @@ def phase_fleet_main_path() -> dict:
 
 # -- the whole-file surface: auplay's preload chain and the effects -------------------
 
-CARD = "cuda"  # the device of the whole-file phases (a rehearsal on the CPU sets "cpu")
+CARD = "cuda"  # the device of the whole-file phases and the two-process workers (a
+# rehearsal on the CPU sets "cpu")
 WHOLE_SECONDS = 180  # a 3-minute track
 PODCAST_REPEATS = 20  # the 60-minute case: the 3-minute PCM16 track 20 times
 CUT_SECONDS = 10  # the cut the CPU chain runs too
@@ -3673,7 +3692,8 @@ def phase_cli() -> dict:
        twin over the 3-minute track's values on the card): both captures
        equal, and == the CPU run's on TWIN_CUT_SECONDS;
     4. ``austream --fleet`` over FLEET_STATIONS paths of [fleet]'s three
-       files (FLAC, raw DFPWM, IMA-in-WAV; hard links), with the split of
+       kinds of file (FLAC, raw DFPWM, IMA-in-WAV; CLI_FLEET_SECONDS each;
+       hard links), with the split of
        ``play_fleet``'s time (it starts a thread a station and one
        producer: FLEET_STATIONS + 1); station 0's bytes == a direct Fleet's
        (of one station of each kind: stations are independent lanes);
@@ -3825,7 +3845,7 @@ def phase_cli() -> dict:
         del values, caught
 
         # 4. austream --fleet
-        flac, (_, dfpwm), ima = fleet_main_sources(fx)[:3]
+        flac, (_, dfpwm), ima = fleet_main_sources(fx, CLI_FLEET_SECONDS)[:3]
         paths4 = fleet_cli_files(os.path.join(tmp, "fleet"),
                                  ((".flac", flac), (".dfpwm", dfpwm), (".wav", ima)),
                                  FLEET_STATIONS)
@@ -3842,8 +3862,8 @@ def phase_cli() -> dict:
         direct = sync_time() - t0
         busy = clock["step"] + clock["host_copy"] + clock["progress"]
         say("cli", run="austream_fleet", stations=FLEET_STATIONS,
-            seconds_per_station=FLEET_SECONDS, seconds=round(dt, 4),
-            station_seconds_per_second=round(FLEET_STATIONS * FLEET_SECONDS / dt, 1),
+            seconds_per_station=CLI_FLEET_SECONDS, seconds=round(dt, 4),
+            station_seconds_per_second=round(FLEET_STATIONS * CLI_FLEET_SECONDS / dt, 1),
             fleet_step_s=round(clock["step"], 4), host_copy_s=round(clock["host_copy"], 4),
             progress_s=round(clock["progress"], 4),
             producer_waits_s=round(clock["play_fleet"] - busy, 4),
@@ -3851,14 +3871,14 @@ def phase_cli() -> dict:
             play_fleet_s=round(clock["play_fleet"], 4), direct_fleet_s=round(direct, 4),
             launches=json.dumps(launched), station0_bytes=len(got),
             station0_equals_direct_fleet=got == want)
-        check(err is None and got == want and len(got) >= FLEET_SECONDS * 48000,
+        check(err is None and got == want and len(got) >= CLI_FLEET_SECONDS * 48000,
               "cli austream --fleet: station 0 == a direct Fleet's station 0")
         del want
         torch.cuda.empty_cache()
 
         # 5. auconvert --fleet
         rng = np.random.default_rng(77)
-        pcm = fx.wav_pcm(rng.integers(-(1 << 14), 1 << 14, (1, 48000 * FLEET_SECONDS)), 48000,
+        pcm = fx.wav_pcm(rng.integers(-(1 << 14), 1 << 14, (1, 48000 * CLI_FLEET_SECONDS)), 48000,
                          16)
         kinds = ((".flac", flac), (".wav", pcm), (".wav", ima))
         ins = fleet_cli_files(os.path.join(tmp, "convert"), kinds, FLEET_STATIONS)
@@ -3873,13 +3893,13 @@ def phase_cli() -> dict:
                                  BatchEncodeEngine([EncodeSpec("dfpwm")] * 3, device=CARD))
         direct = sync_time() - t0
         same_all = all(Path(o).read_bytes() == bodies[i % 3] for i, o in enumerate(outs))
-        say("cli", run="auconvert_fleet", inputs=len(ins), seconds_per_input=FLEET_SECONDS,
+        say("cli", run="auconvert_fleet", inputs=len(ins), seconds_per_input=CLI_FLEET_SECONDS,
             seconds=round(dt, 4),
-            input_seconds_per_second=round(len(ins) * FLEET_SECONDS / dt, 1),
+            input_seconds_per_second=round(len(ins) * CLI_FLEET_SECONDS / dt, 1),
             output_bytes=sum(len(bodies[i % 3]) for i in range(len(outs))),
             direct_transcode_s=round(direct, 4),
             launches=json.dumps(launched), outputs_equal_transcode_fleet=same_all)
-        check(err is None and same_all and all(len(b) >= FLEET_SECONDS * 6000 for b in bodies),
+        check(err is None and same_all and all(len(b) >= CLI_FLEET_SECONDS * 6000 for b in bodies),
               "cli auconvert --fleet: every output == transcode_fleet's")
         del bodies
         torch.cuda.empty_cache()
@@ -3934,6 +3954,491 @@ def phase_cli() -> dict:
            "qoa_lms", "lpc_restore", "fma")
     check(all(totals[k] > 0 for k in ran), f"cli: kernels (a)-(g) and the FMA ran ({totals})")
     return totals
+
+
+# -- the multi-device layer: lane shards over a mesh, and two processes ---------------
+
+MULTI_SHARDS = 4  # make_mesh(4): four shards, all on cuda:0 on a one-card machine
+MULTI_SECONDS = 4  # seconds a lane of the 32768-lane sharded DFPWM engine
+MULTI_CHECK_LANES = 66  # the check-size engines: no multiple of the shards
+MULTIHOST_LANES = 16384  # lanes of each of the two processes
+MULTIHOST_SECONDS = 2
+MULTIHOST_TIMEOUT = 300
+
+
+def accumulate(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+# the wrappers the sharded paths launch, by their name in the launch counts,
+# with their plain versions
+SHARDED_KERNELS = {
+    "dfpwm_decode": (kc.dfpwm_decode_kernel, kc.dfpwm_decode_ref),
+    "dfpwm_decode_dsp": (kc.dfpwm_decode_dsp_kernel, kc.dfpwm_decode_dsp_ref),
+    "dfpwm_encode": (kc.dfpwm_encode_kernel, kc.dfpwm_encode_ref),
+    "ima_decode": (ka.ima_decode_kernel, ka.ima_decode_ref),
+    "msadpcm_decode": (ka.msadpcm_decode_kernel, ka.msadpcm_decode_ref),
+    "qoa_lms": (kq.qoa_lms_kernel, kq.qoa_lms_ref),
+    "lpc_restore": (kg.lpc_restore_kernel, kg.lpc_restore_ref),
+    "iir_zero": (kh.iir_zero_kernel, kh.iir_zero_ref),
+    "fma": (kf.fma_kernel, kf.fma_ref)}
+# the plain versions take a Python step a sample whatever their rows, ~3x
+# cheaper on the CPU than on the card for a few rows: the DFPWM kernels'
+# recorded calls of one signature replay as one call, stacked by rows
+STACKED_REPLAYS = ("dfpwm_decode", "dfpwm_decode_dsp", "dfpwm_encode")
+CARD_REPLAY_ROWS = 4096  # a replay this wide runs on the card, a narrower one on the CPU
+
+
+def map_tree(fn, x):
+    """``fn`` on every tensor of ``x`` (tuples, lists, dicts, DfpwmStates)."""
+    if torch.is_tensor(x):
+        return fn(x)
+    if isinstance(x, DfpwmState):
+        return DfpwmState(*(fn(a) for a in x.leaves()))
+    if isinstance(x, (tuple, list)):
+        return type(x)(map_tree(fn, a) for a in x)
+    if isinstance(x, dict):
+        return {k: map_tree(fn, v) for k, v in x.items()}
+    return x
+
+
+def tree_leaves(x) -> list:
+    if isinstance(x, DfpwmState):
+        return list(x.leaves())
+    if isinstance(x, (tuple, list)):
+        return [leaf for a in x for leaf in tree_leaves(a)]
+    if isinstance(x, dict):
+        return [leaf for k in sorted(x) for leaf in tree_leaves(x[k])]
+    return [x]
+
+
+def tree_signature(x):
+    """What must agree for two calls' arguments to stack by rows: every
+    tensor's dtype and trailing shape, every other value itself."""
+    if torch.is_tensor(x):
+        return str(x.dtype), tuple(x.shape[1:])
+    if isinstance(x, (DfpwmState, tuple, list, dict)):
+        return type(x).__name__, tuple(tree_signature(a) for a in tree_leaves(x))
+    return x
+
+
+def stack_trees(trees):
+    """Trees of one signature as one tree, each tensor concatenated by rows."""
+    first = trees[0]
+    if torch.is_tensor(first):
+        return torch.cat(trees)
+    if isinstance(first, DfpwmState):
+        return DfpwmState(*(torch.cat(col) for col in zip(*(t.leaves() for t in trees))))
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_trees(col) for col in zip(*trees))
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return first
+
+
+def tree_err(a, b) -> float:
+    """Largest |a - b| over two results' leaves (inf where a dtype, a shape,
+    a NaN or a non-tensor value differs; 0 for bit-equal floats)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return float("inf")
+    err = 0.0
+    for x, y in zip(la, lb):
+        if not torch.is_tensor(x):
+            if torch.is_tensor(y) or x != y:
+                return float("inf")
+            continue
+        y = y.to(x.device)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return float("inf")
+        if x.is_floating_point():
+            if torch.equal(*(t.contiguous().reshape(-1).view(torch.uint8) for t in (x, y))):
+                continue
+            d = float((x.double() - y.double()).abs().max())
+            err = max(err, d if d == d else float("inf"))
+        elif not torch.equal(x, y):
+            err = max(err, float((x.long() - y.long()).abs().max()))
+    return err
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(calls: dict, case: str):
+    """Within the block, every launch of a ``SHARDED_KERNELS`` wrapper, under
+    every name a module of the package binds it to, goes through a recorder:
+    ``calls[name, case]`` keeps the first and the last launch as ((args,
+    kwargs) cloned before it, (result, kwargs) cloned after it: kernel (g)'s
+    ``wrapped`` flags are an output), and ``calls[name, case, "launches"]``
+    counts every launch recorded. The wrappers count their launches on the
+    recorder while it stands in their module; the counts go back to them at
+    the end."""
+    modules = [m for n, m in list(sys.modules.items())
+               if m is not None and (n == "aukit_tpu_torch" or n.startswith("aukit_tpu_torch."))]
+    saved, recorders = [], {}
+    for name, (fn, _) in SHARDED_KERNELS.items():
+        def recording(*args, _fn=fn, _name=name, **kwargs):
+            inputs = map_tree(torch.clone, (args, kwargs))
+            before = recorders[_name].launches
+            out = _fn(*args, **kwargs)
+            if recorders[_name].launches > before:  # an empty call launches nothing
+                made = calls.setdefault((_name, case), [])
+                made[1:] = []  # the first stays, the newest is the last so far
+                made.append((inputs, map_tree(torch.clone, (out, kwargs))))
+                key = (_name, case, "launches")
+                calls[key] = calls.get(key, 0) + recorders[_name].launches - before
+            return out
+
+        recording.launches = recording.wide_launches = 0
+        recorders[name] = recording
+        for module in modules:
+            for attr, value in list(vars(module).items()):
+                if value is fn:
+                    saved.append((module, attr, fn))
+                    setattr(module, attr, recording)
+    try:
+        yield calls
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+        for name, (fn, _) in SHARDED_KERNELS.items():
+            fn.launches += recorders[name].launches
+            if hasattr(fn, "wide_launches"):
+                fn.wide_launches += recorders[name].wide_launches
+
+
+def meshed_run(launches: dict, run, calls: dict | None = None, case: str = ""):
+    """``run()`` with the launch counts zeroed just before it and read just
+    after, added to ``launches``; no plain version may run on the card. With
+    ``calls``, every launch is recorded (``recorded_kernel_calls``) under
+    ``case``, and each kernel's recorded launches must equal its count."""
+    kernels.reset_counts()
+    if calls is None:
+        out = run()
+    else:
+        with recorded_kernel_calls(calls, case):
+            out = run()
+    check(plain_calls() == 0, "no plain version on the sharded path")
+    counts = dsp_counts()
+    if calls is not None:
+        seen = {k: calls.get((k, case, "launches"), 0) for k in counts}
+        check(seen == counts, f"{case}: every launch went through the recorder "
+                              f"({seen} of {counts})")
+    accumulate(launches, counts)
+    return out
+
+
+def replay_sharded_calls(calls: dict) -> dict:
+    """Each kernel's recorded first and last launch of every sharded case
+    against its plain version on the same inputs: the DFPWM kernels' calls
+    of one signature stacked by rows into one plain call, every other call
+    replayed alone; on the card from CARD_REPLAY_ROWS rows, on the CPU below
+    (the plain loops take a Python step a sample whatever the rows).
+    -> max |error| by kernel."""
+    errs = {}
+    by_kernel: dict = {}
+    for key, made in calls.items():
+        if len(key) == 2:
+            by_kernel.setdefault(key[0], []).extend((key[1], m) for m in made)
+    for name, items in by_kernel.items():
+        plain = SHARDED_KERNELS[name][1]
+        if name in STACKED_REPLAYS:
+            groups: dict = {}
+            for case, m in items:
+                groups.setdefault(tree_signature(m[0]), []).append((case, m))
+            batches = list(groups.values())
+        else:
+            batches = [[item] for item in items]
+        err, t0, replays = 0.0, sync_time(), []
+        for batch in batches:
+            inputs, want = batch[0][1] if len(batch) == 1 else (
+                stack_trees([m[k] for _, m in batch]) for k in (0, 1))
+            rows = max((t.shape[0] for t in tree_leaves(inputs) if torch.is_tensor(t) and t.dim()),
+                       default=0)
+            on = CARD if rows >= CARD_REPLAY_ROWS else "cpu"
+            args, kwargs = map_tree(lambda t: t.to(on, copy=True), inputs)
+            got = plain(*args, **kwargs)
+            e = tree_err(map_tree(lambda t: t.to(CARD), (got, kwargs)), want)
+            err = max(err, e)
+            replays.append((rows, on, sorted({c for c, _ in batch})))
+            check(e == 0, f"{name}: kernel == plain on the sharded path's calls "
+                          f"{sorted({c for c, _ in batch})} ({e})")
+        say("multi_gpu_kernel", kernel=name, calls=len(items), plain_calls=len(batches),
+            widest_rows=max(r for r, _, _ in replays),
+            on_card=sum(on == CARD for _, on, _ in replays),
+            cases=json.dumps(sorted({c for c, _ in items})), max_abs_err=err,
+            plain_seconds=round(sync_time() - t0, 3))
+        errs[name] = err
+    return errs
+
+
+def sharded_vs_plain_full(label: str, mesh, host: np.ndarray, launches: dict,
+                          calls: dict) -> dict:
+    """The sharded 32768-lane DFPWM engine and the unsharded one over the same
+    bulk-fed bytes, stepped in turns, each step timed to a synchronise;
+    every window, mask and position equal. The sharded steps also record
+    CUDA events around each shard's device step and around the gather. The
+    first step of each engine is not timed: it pays the lazy loads of a
+    process's first launches, and its sharded launches are recorded into
+    ``calls`` under ``label`` (the first shard's and the last's)."""
+    sharded = BatchDfpwmDecoder(FULL_LANES, 48000, chunk_bytes=6000, mesh=mesh)
+    plain = BatchDfpwmDecoder(FULL_LANES, 48000, chunk_bytes=6000)
+    sharded.feed_array(host)
+    plain.feed_array(host)
+    spans = {"shard": [], "gather": []}
+    step_fn, gather_fn = sb._Group._step, sb.gather_rows
+
+    def timed_step(self, sh, *a, **k):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = step_fn(self, sh, *a, **k)
+        e[1].record()
+        spans["shard"].append(e)
+        return out
+
+    def timed_gather(*a, **k):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = gather_fn(*a, **k)
+        e[1].record()
+        spans["gather"].append(e)
+        return out
+
+    t_sharded = t_plain = 0.0
+    steps = 0
+    while True:
+        sb._Group._step, sb.gather_rows = timed_step, timed_gather
+        try:
+            t0 = sync_time()
+            r = meshed_run(launches, sharded.step, calls if steps == 0 else None, label)
+            t1 = sync_time()
+        finally:
+            sb._Group._step, sb.gather_rows = step_fn, gather_fn
+        p = plain.step()
+        t2 = sync_time()
+        if r is None or p is None:
+            check(r is None and p is None, f"{label}: both engines end together")
+            break
+        if steps:
+            t_sharded, t_plain = t_sharded + t1 - t0, t_plain + t2 - t1
+        check(torch.equal(r[0], p[0]) and np.array_equal(r[1], p[1])
+              and np.array_equal(r[2], p[2]), f"{label}: step {steps} sharded == unsharded")
+        steps += 1
+    check(steps == MULTI_SECONDS, f"{label}: {MULTI_SECONDS} steps")
+    audio = sharded.metrics.samples_decoded / 48000 * (steps - 1) / steps
+    shard_ms = [a.elapsed_time(b) for a, b in spans["shard"][mesh.size:]]
+    gather_ms = [a.elapsed_time(b) for a, b in spans["gather"][1:]]
+    row = {"mesh": label, "shards": mesh.size, "devices": len({str(d) for d in mesh.devices.flat}),
+           "lanes": FULL_LANES, "steps": steps, "equal": True,
+           "realtime_factor_sharded": round(audio / t_sharded, 1),
+           "realtime_factor_unsharded": round(audio / t_plain, 1),
+           "timed_steps": steps - 1,
+           "step_ms_sharded": round(t_sharded / (steps - 1) * 1e3, 3),
+           "step_ms_unsharded": round(t_plain / (steps - 1) * 1e3, 3),
+           "shard_step_ms_mean": round(float(np.mean(shard_ms)), 4),
+           "shard_step_ms_max": round(float(np.max(shard_ms)), 4),
+           "gather_ms_mean": round(float(np.mean(gather_ms)), 4)}
+    say("multi_gpu_main_path", **row)
+    return row
+
+
+def sharded_vs_plain(name: str, make, run, launches: dict, calls: dict) -> None:
+    """``run(make(mesh))`` over make_mesh(MULTI_SHARDS) (its launches counted
+    and recorded into ``calls`` under ``name``) equals ``run(make(None))``,
+    both on the card (``deep_equal``)."""
+    mesh = make_mesh(MULTI_SHARDS)
+    got = meshed_run(launches, lambda: run(make(mesh)), calls, name)
+    want = run(make(None))
+    check(deep_equal(got, want), f"{name}: sharded == unsharded on the card")
+    say("multi_gpu_engine", case=name, shards=MULTI_SHARDS, equal=True)
+
+
+def engine_steps(eng, feeds, volumes=()):
+    """Per-lane feeds through ``drive``: every step's (windows, mask,
+    positions) on the host and every lane's final checkpoint."""
+    steps = [(r[0].cpu().numpy(), r[1].copy(), r[2].copy()) for r in drive(eng, feeds, volumes)]
+    return steps, [eng.checkpoint(i) for i in range(eng.lanes)]
+
+
+def multihost_reference(rng_seed: int = 7):
+    """The single-process 32768-lane card engine over the two workers' fleet
+    (tests/torch_dist_worker.py draws it from ``default_rng(7)``) and the
+    unsharded flagship step over their pipeline batch -> ({pid: pipeline
+    SHA-256}, {pid: [each step's SHA-256]})."""
+    rng = np.random.default_rng(rng_seed)
+    lanes = 2 * MULTIHOST_LANES
+    pipe = torch.tensor(rng.integers(0, 256, (lanes, 96), dtype=np.uint8), device=CARD)
+    out, _ = sp.decode_pipeline_scan(pipe, DfpwmState.zeros(lanes, CARD), 48000, 0.9)
+    out = out.cpu().numpy()
+    feed = rng.integers(0, 256, (lanes, 6000 * MULTIHOST_SECONDS), dtype=np.uint8)
+    eng = BatchStreamEngine([LaneSpec("dfpwm", 48000, chunk_bytes=6000)] * lanes, device=CARD)
+    for i in range(lanes):
+        eng.feed(i, feed[i].tobytes())
+        eng.feed(i, None)
+    pipes, steps = {}, {0: [], 1: []}
+    for pid in (0, 1):
+        lo = pid * MULTIHOST_LANES
+        pipes[pid] = hashlib.sha256(out[lo: lo + MULTIHOST_LANES].tobytes()).hexdigest()
+    for chunk, mask, pos in iter(eng.step, None):
+        chunk = chunk.cpu().numpy()
+        for pid in (0, 1):
+            lo, hi = pid * MULTIHOST_LANES, (pid + 1) * MULTIHOST_LANES
+            steps[pid].append(hashlib.sha256(chunk[lo:hi].tobytes() + mask[lo:hi].tobytes()
+                                             + pos[lo:hi].tobytes()).hexdigest())
+    return pipes, steps
+
+
+def phase_multihost(launches: dict) -> None:
+    """MultiHostEngine and multihost_pipeline_step in two processes on this
+    card, a gloo group on a free localhost port, MULTIHOST_LANES lanes a
+    process in two shards each, MULTIHOST_SECONDS a lane: each worker's
+    per-step SHA-256 of its rows, masks and positions, and of its pipeline
+    rows, against the single-process card runs; the workers' kernel launches
+    are added to ``launches``. Both workers are killed if they outlive
+    MULTIHOST_TIMEOUT."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    worker = str(ROOT / "tests" / "torch_dist_worker.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, str(pid), port, CARD,
+                               str(MULTIHOST_LANES), str(6000 * MULTIHOST_SECONDS), "6000", "2",
+                               "-"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for pid in (0, 1)]
+    try:
+        pipes, steps = multihost_reference()
+        logs = [p.communicate(timeout=MULTIHOST_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0 and f"DIST_ENGINE_OK {pid} {MULTIHOST_SECONDS}" in log,
+              f"multihost worker {pid} ran ({p.returncode}):\n{log[-3000:]}")
+        check(f"DIST_PIPE {pid} {pipes[pid]}" in log,
+              f"multihost worker {pid}: pipeline rows == the unsharded card step")
+        for k, digest in enumerate(steps[pid]):
+            check(f"DIST_STEP {pid} {k} {digest}" in log,
+                  f"multihost worker {pid}: step {k} == the single-process card engine")
+        got = json.loads(log.split(f"DIST_LAUNCHES {pid} ", 1)[1].splitlines()[0])
+        accumulate(launches, {k.removesuffix("_kernel"): v for k, v in got.items()})
+    say("multi_gpu_multihost", processes=2, lanes_per_process=MULTIHOST_LANES,
+        shards_per_process=2, seconds_per_lane=MULTIHOST_SECONDS, steps=len(steps[0]),
+        equal=True, wall_seconds=round(seconds, 3))
+
+
+@phase
+def phase_multi_gpu() -> tuple[dict, dict]:
+    """The multi-device layer on the card. The sharded main path: a
+    32768-lane identity-rate DFPWM engine (MULTI_SECONDS a lane, bulk-fed)
+    over make_mesh(MULTI_SHARDS) (four shards on one card), and over
+    make_mesh() when the machine has two cards or more, each step equal to
+    the unsharded card engine's, both realtime factors, a shard's device
+    step and the gather by CUDA events. ``sharded_pipeline_step`` at 32768 x
+    6000 bytes against the unsharded ``decode_pipeline_scan(normalize_peak=
+    0.9)``. Check-size sharded engines, each equal to its unsharded card
+    run: a mixed 48/32 kHz DFPWM fleet, a block fleet whose groups divide no
+    shard count, a transcode of a sharded decode engine into a sharded
+    encode engine, the FLAC fleet on its host and device routes, and the
+    Fleet facade over six kinds of station. Every sharded launch of these
+    runs goes through a recorder, and each kernel's first and last launch of
+    each run are held to its plain version on the same inputs
+    (``replay_sharded_calls``). Then MultiHostEngine in two processes
+    (``phase_multihost``). Returns (the launches of every sharded run, each
+    run's counts zeroed just before and read just after; max |error| of
+    each kernel against its plain version at the sharded shapes)."""
+    launches: dict = {}
+    calls: dict = {}
+    rng = np.random.default_rng(71)
+    host = rng.integers(0, 256, (FULL_LANES, 6000 * MULTI_SECONDS), dtype=np.uint8)
+    meshes = [(f"make_mesh({MULTI_SHARDS})", make_mesh(MULTI_SHARDS))]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("make_mesh()", make_mesh()))
+    else:
+        say("multi_gpu_main_path", mesh="make_mesh()", skipped="one card: make_mesh() is one shard")
+    main_launches: dict = {}
+    for label, mesh in meshes:
+        sharded_vs_plain_full(label, mesh, host, main_launches, calls)
+    del host
+    check(main_launches.get("dfpwm_decode_dsp", 0) == MULTI_SECONDS * sum(m.size for _, m in meshes),
+          f"kernel (b) launched once a shard a step ({main_launches})")
+    accumulate(launches, main_launches)
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(MULTI_SHARDS)
+    fn, args = sp.sharded_pipeline_step(mesh, FULL_LANES, 6000)
+    whole = torch.cat(args[0]), DfpwmState(*(torch.cat(a) for a in args[1:]))
+    t_sharded = t_plain = 0.0
+    for k in range(2):  # the second run of each is timed: the first pays lazy loads
+        t0 = sync_time()
+        out = meshed_run(launches, lambda: fn(*args), calls if k == 0 else None, "pipeline_step")
+        t_sharded = sync_time() - t0
+        ref, st = sp.decode_pipeline_scan(*whole, 48000, 0.9)
+        t_plain = sync_time() - t0 - t_sharded
+    ok = torch.equal(torch.cat(out[0]), ref) and all(
+        torch.equal(torch.cat(a), b) for a, b in zip(out[1:], st.leaves()))
+    say("multi_gpu_pipeline_step", shards=MULTI_SHARDS, lanes=FULL_LANES, bytes=6000,
+        equal=ok, ms_sharded=round(t_sharded * 1e3, 3), ms_unsharded=round(t_plain * 1e3, 3))
+    check(ok, "sharded_pipeline_step == decode_pipeline_scan(normalize_peak=0.9) on the card")
+    del out, ref, st, args, whole
+    torch.cuda.empty_cache()
+
+    n = MULTI_CHECK_LANES
+    feeds = [rng.integers(0, 256, int(rng.integers(9000, 13000)), dtype=np.uint8).tobytes()
+             for _ in range(n)]
+    vols = [(1, 0.5, True), (n - 1, 1.3, False)]
+    sharded_vs_plain(
+        "mixed_48k_32k",
+        lambda m: BatchStreamEngine([LaneSpec("dfpwm", 48000 if i % 2 else 32000)
+                                     for i in range(n)], m),
+        lambda eng: engine_steps(eng, feeds, vols), launches, calls)
+    block_lanes = (7, 5, 3, 6, 5)
+    groups = [block_fleet_bytes(rng, spec, k, 2)[0] for spec, k in zip(BLOCK_FLEET, block_lanes)]
+    block_specs = [spec for spec, k in zip(BLOCK_FLEET, block_lanes) for _ in range(k)]
+    block_feeds = [row.tobytes() for g in groups for row in g]
+    block_vols = [(1, 0.5, True), (len(block_specs) - 1, 1.3, False)]
+    sharded_vs_plain("block_fleet", lambda m: BatchStreamEngine(block_specs, m),
+                     lambda eng: engine_steps(eng, block_feeds, block_vols), launches, calls)
+    pcm = [(np.sin(np.arange(96000) / (5.0 + i % 9)) * (6000 + 300 * i)).astype("<i2").tobytes()
+           for i in range(10)]
+
+    def transcode(engines):
+        dec, enc = engines
+        for lane, data in enumerate(pcm):
+            dec.feed(lane, data)
+            dec.feed(lane, None)
+        enc.set_volume(2, 0.8, ramp=True)
+        return transcode_fleet(dec, enc)
+
+    sharded_vs_plain(
+        "transcode",
+        lambda m: (BatchStreamEngine([LaneSpec("pcm16", 48000)] * 10, m, windowed=True),
+                   BatchEncodeEngine([EncodeSpec("dfpwm")] * 5 + [EncodeSpec("pcm16")] * 5,
+                                     48000, m)),
+        transcode, launches, calls)
+    fx = load_fixtures()
+    streams = flac_check_streams(fx, FLAC_CHECK_LANES)[:FLAC_CHECK_LANES - 2]
+    for route, kw in (("flac_host_route", {}),
+                      ("flac_device_route", {"device_restore": True, "device_dsp": True})):
+        sharded_vs_plain(route, lambda m, kw=kw: FlacFleet(len(streams), mesh=m, **kw),
+                         lambda fleet: run_flac(fleet, streams, 1 << 16, [(1, 0.5), (6, 1.4)]),
+                         launches, calls)
+    sources = fleet_check_sources(fx, np.random.default_rng(51))
+    sharded_vs_plain("fleet", lambda m: Fleet(sources, mesh=m, mono=False, channels=2,
+                                              device_restore=True, device_dsp=True),
+                     drive_fleet_check, launches, calls)
+    errs = replay_sharded_calls(calls)
+    del calls
+    torch.cuda.empty_cache()
+    phase_multihost(launches)
+    ran = ("dfpwm_decode", "dfpwm_decode_dsp", "dfpwm_encode", "ima_decode", "msadpcm_decode",
+           "qoa_lms", "lpc_restore", "iir_zero", "fma")
+    say("multi_gpu_launches", **launches)
+    check(all(launches.get(k, 0) > 0 for k in ran),
+          f"every kernel ran on the sharded paths ({launches})")
+    check(sorted(errs) == sorted(ran), f"every kernel held to its plain version ({sorted(errs)})")
+    return launches, errs
 
 
 def main() -> None:
@@ -4001,6 +4506,11 @@ def main() -> None:
         key = {"ima_decode": "ima", "msadpcm_decode": "msadpcm", "qoa_lms": "qoa"}.get(name, name)
         errs[key] = max(errs.get(key, 0), err)
     path_launches.append(phase_cli())
+    multi_launches, multi_errs = phase_multi_gpu()
+    path_launches.append(multi_launches)
+    for name, err in multi_errs.items():
+        key = {"ima_decode": "ima", "msadpcm_decode": "msadpcm", "qoa_lms": "qoa"}.get(name, name)
+        errs[key] = max(errs.get(key, 0), err)
     phase_times()
     times.update(phase_encode_time(encode_plain_ms))
     times.update(phase_block_times())

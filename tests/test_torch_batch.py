@@ -251,18 +251,22 @@ def test_checkpoint_restores_across_packages(direction):
 
 
 def test_unported_pieces_raise():
-    """What is still to port raises, naming its ROADMAP item: every ``mesh``
-    option. The DSP stages are ported: a checkpoint that carries them
+    """Nothing is left unported: every ``mesh`` option takes the port's mesh
+    (``make_mesh``) and raises TypeError naming ``make_mesh`` for any other
+    object; the DSP stages are ported: a checkpoint that carries them
     restores (it raised before they were)."""
+    from aukit_tpu_torch.parallel.pipeline import make_mesh
     from aukit_tpu_torch.stream.batch_encode import BatchEncodeEngine, EncodeSpec
     from aukit_tpu_torch.stream.flac_fleet import FlacFleet
     from aukit_tpu_torch.stream.fleet import Fleet
 
-    for call in (lambda: FlacFleet(2, mesh=object(), device="cpu"),
-                 lambda: Fleet([b"fLaC"], mesh=object(), device="cpu"),
-                 lambda: BatchEncodeEngine([EncodeSpec("dfpwm")], mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    wav = fixtures.wav_pcm(np.zeros((1, 800), np.int16), 8000, 16)
+    for make in (lambda m: FlacFleet(2, mesh=m, device="cpu"),
+                 lambda m: Fleet([wav], mesh=m, device="cpu"),
+                 lambda m: BatchEncodeEngine([EncodeSpec("dfpwm")], mesh=m, device="cpu")):
+        with pytest.raises(TypeError, match="make_mesh"):
+            make(object())
+        assert make(make_mesh(2, device="cpu")) is not None
     eng = batch.BatchDfpwmDecoder(2, 48000, chunk_bytes=100, device="cpu")
     ckpt = eng.checkpoint(0)
     ckpt["dsp"] = {**ckpt["dsp"], "kind": 1, "alpha": 0.25, "y": 0.5}
@@ -399,8 +403,9 @@ def test_engines_take_the_jax_positional_arguments():
     """``BatchStreamEngine(specs, mesh, use_pallas, mono, ...)`` and
     ``BatchDfpwmDecoder(lanes, sample_rate, chunk_bytes, mesh, use_pallas,
     codec)`` as in the JAX package, the device keyword only (ROADMAP queue 3,
-    fault 3.5): the same windows as the JAX engines; a mesh raises naming
-    the Multi-GPU item, as FlacFleet, Fleet and BatchEncodeEngine do."""
+    fault 3.5): the same windows as the JAX engines; a mesh in the mesh
+    slot must be the port's (``make_mesh``; another object raises
+    TypeError), as for FlacFleet, Fleet and BatchEncodeEngine."""
     data = np.random.default_rng(404).integers(0, 256, (2, 300), dtype=np.uint8)
     pairs = []
     for module, kw in ((batch, {"device": "cpu"}), (jax_batch, {})):
@@ -419,10 +424,13 @@ def test_engines_take_the_jax_positional_arguments():
             np.testing.assert_array_equal(w, jw)
             np.testing.assert_array_equal(m, jm)
     specs = [batch.LaneSpec("pcm16", 24000)]
-    for make in (lambda: batch.BatchStreamEngine(specs, object(), device="cpu"),
-                 lambda: batch.BatchDfpwmDecoder(2, 48000, 100, object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="Multi-GPU"):
-            make()
+    from aukit_tpu_torch.parallel.pipeline import make_mesh
+
+    for make in (lambda m: batch.BatchStreamEngine(specs, m, device="cpu"),
+                 lambda m: batch.BatchDfpwmDecoder(2, 48000, 100, m, device="cpu")):
+        with pytest.raises(TypeError, match="make_mesh"):
+            make(object())
+        assert make(make_mesh(2, device="cpu")).mesh.size == 2
     assert batch.BatchStreamEngine(specs, None, False, device="cpu").device.type == "cpu"
 
 
@@ -501,6 +509,13 @@ assert len(enc.checkpoint(1)["codec_state"]) == 3
 pcm8 = t.BatchDfpwmEncoder(2, chunk_samples=64, device="cpu")
 pcm8.feed_array(rng.integers(0, 256, (2, 128), dtype=np.uint8))
 assert pcm8.step()[0].shape == (2, 8) and pcm8.step() is not None and pcm8.done
+# the multi-device layer: a 2-shard decoder, and the multi-process module
+import aukit_tpu_torch.parallel.distributed
+from aukit_tpu_torch.parallel.pipeline import make_mesh
+sharded = t.BatchDfpwmDecoder(3, 48000, chunk_bytes=64, mesh=make_mesh(2, device="cpu"),
+                              device="cpu")
+sharded.feed_array(rng.integers(0, 256, (3, 100), dtype=np.uint8))
+assert [r[0].shape for r in iter(sharded.step, None)] == [(3, 512)] * 2
 # playback, the trace hooks and the four programs
 import aukit_tpu_torch.playback, aukit_tpu_torch.utils.trace
 from aukit_tpu_torch.cli import auconvert, auplay, austream, austream_tm

@@ -931,3 +931,52 @@ def test_programs_on_cuda_match_cpu(tmp_path):
         play_fleet(Fleet(list(files.values()), device=device), sinks[device])
     for g, w in zip(sinks["cuda"], sinks["cpu"]):
         assert len(g.samples()) >= 48000 and np.array_equal(g.samples(), w.samples())
+
+
+def test_sharded_engines_on_the_card_equal_the_cpu():
+    """The multi-device layer on the card: a mixed fleet (fused DFPWM, DFPWM at
+    32 kHz, IMA, QOA, PCM16; groups that divide no shard count) over three
+    lane shards of the card, the sharded flagship step and the sharded FLAC
+    restore, each equal to the CPU run, with every kernel launched once a
+    live shard and no plain version on the card."""
+    from aukit_tpu_torch.kernels.flac_cuda import lpc_restore_sharded
+    from aukit_tpu_torch.parallel.pipeline import (decode_pipeline_scan, make_mesh,
+                                                   sharded_pipeline_step)
+
+    rng = np.random.default_rng(131)
+    specs = ([LaneSpec("dfpwm", 48000)] * 4 + [LaneSpec("dfpwm", 32000)] * 2
+             + [LaneSpec("ima", 8000, 1, block_align=256)] + [LaneSpec("qoa", 5120, 1)]
+             + [LaneSpec("pcm16", 8000)] * 2)
+    feeds = [rng.integers(0, 256, 7000, dtype=np.uint8).tobytes() for _ in range(6)]
+    ima = rng.integers(0, 256, (12, 256), dtype=np.uint8)
+    ima[:, 2], ima[:, 3] = rng.integers(0, 89, 12), 0
+    feeds.append(ima.tobytes())
+    feeds.append(rng.integers(0, 256, 8 + 16 + 256 * 8, dtype=np.uint8).tobytes())
+    feeds += [rng.integers(0, 256, 20000, dtype=np.uint8).tobytes() for _ in range(2)]
+    runs = []
+    for mesh, device in ((make_mesh(3), "cuda"), (make_mesh(3, device="cpu"), "cpu")):
+        kernels.reset_counts()
+        eng = BatchStreamEngine(specs, mesh, device=device)
+        eng.set_volume(1, 0.5, ramp=True)
+        for lane, data in enumerate(feeds):
+            eng.feed(lane, data)
+            eng.feed(lane, None)
+        runs.append([(r[0].cpu().numpy(), r[1].copy(), r[2].copy()) for r in iter(eng.step, None)])
+        if device == "cuda":
+            assert sum(fn.calls for fn in kernels.PLAIN) == 0
+            assert dfpwm_decode_dsp_kernel.launches > 0 and dfpwm_decode_kernel.launches > 0
+            assert ima_decode_kernel.launches > 0 and qoa_lms_kernel.launches > 0
+    assert len(runs[0]) == len(runs[1]) > 0
+    for a, b in zip(*runs):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    fn, args = sharded_pipeline_step(make_mesh(4), 64, 200)
+    out = [torch.cat(o).cpu() for o in fn(*args)]
+    want, st = decode_pipeline_scan(torch.cat(args[0]).cpu(), DfpwmState.zeros(64), 48000, 0.9)
+    assert torch.equal(out[0], want)
+    assert all(torch.equal(o, s) for o, s in zip(out[1:], st.leaves()))
+    _name, (vals, orders, shifts, blocks, coefs), _k = list(kernel_cases.lpc_cases("cpu"))[2]
+    got = lpc_restore_sharded(vals, orders, shifts, blocks, coefs, make_mesh(3))
+    assert got.device.type == "cuda"
+    want = lpc_restore_sharded(vals, orders, shifts, blocks, coefs, make_mesh(3, device="cpu"))
+    assert torch.equal(got.cpu(), want)

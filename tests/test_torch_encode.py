@@ -581,9 +581,13 @@ def test_encode_windows_positions_chunk_start():
 
 
 def test_encode_engine_argument_errors():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from aukit_tpu_torch.parallel.pipeline import make_mesh
+
+    with pytest.raises(TypeError, match="make_mesh"):
         batch_encode.BatchEncodeEngine([batch_encode.EncodeSpec("dfpwm")], device="cpu",
                                        mesh=object())
+    assert batch_encode.BatchEncodeEngine([batch_encode.EncodeSpec("dfpwm")], device="cpu",
+                                          mesh=make_mesh(2, device="cpu")).mesh.size == 2
     with pytest.raises(ValueError):
         batch_encode.EncodeSpec("opus")
     with pytest.raises(ValueError):

@@ -469,3 +469,25 @@ def test_kernel_cases_iir_plain_version_matches_jitted_pallas(name):
         assert denormal.any() and not want[denormal].any()
         got = np.where(denormal, np.float32(0), got)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,data", [
+    ("lpc16", lpc_stream(np.random.default_rng(41))),
+    ("lpc24_wasted", lpc_stream(np.random.default_rng(42), depth=24, wasted=1)),
+    ("mid_side", make_flac(44100, 4, channels=2, chan_asgn=10, seed=43)),
+    ("left_side_short", make_flac(22050, 3, channels=2, chan_asgn=8, seed=44, final_short=77)),
+    ("depth8", make_flac(16000, 3, seed=45, depth=8)),
+])
+def test_decode_flac_native_route_is_the_fused_native_decode(name, data):
+    """``decode_flac(use_native=True)`` is the JAX package's native route, the
+    fused ``flacbits.decode_full`` pass, bit for bit; no kernel runs; and the
+    staged route (kernel (g)'s plain version here) gives the same samples."""
+    calls = flac_cuda.lpc_restore_ref.calls
+    got = flac.decode_flac(data, use_native=True, device="cpu")
+    assert flac_cuda.lpc_restore_ref.calls == calls
+    want = jax_flac.decode_flac(data, use_native=True)
+    assert got[0].dtype == want[0].dtype == np.float32
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    np.testing.assert_array_equal(got[0], flac.decode_flac(data, use_native=False,
+                                                           device="cpu")[0])

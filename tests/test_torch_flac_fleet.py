@@ -209,15 +209,17 @@ def test_checkpoints_restore_across_packages(into):
 
 
 def test_host_route_runs_no_kernel_and_fleet_options():
-    """The default route calls neither kernel's plain version; mesh is not
-    ported; a device route on "cuda" needs a card."""
+    """The default route calls neither kernel's plain version; a mesh must
+    be the port's (``make_mesh``); a device route on "cuda" needs a card."""
     from aukit_tpu_torch import kernels
+    from aukit_tpu_torch.parallel.pipeline import make_mesh
 
     kernels.reset_counts()
     run_both([make_flac(48000, 3, seed=21)])
     assert all(fn.calls == 0 for fn in kernels.PLAIN)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(TypeError, match="make_mesh"):
         FlacFleet(2, mesh=object(), device="cpu")
+    assert FlacFleet(2, mesh=make_mesh(2, device="cpu"), device="cpu").mesh.size == 2
     FlacFleet(2)  # the host route needs no card
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

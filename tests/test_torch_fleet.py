@@ -15,6 +15,7 @@ import torch
 import aukit_tpu as ak
 from aukit_tpu.stream import batch as jax_batch
 from aukit_tpu.stream import fleet as jax_fleet
+from aukit_tpu_torch.parallel.pipeline import make_mesh
 from aukit_tpu_torch.stream import batch, fleet
 from tests import fixtures
 from tests.test_fleet import fir_48k_f, make_mdfpwm
@@ -150,8 +151,11 @@ def test_fleet_facade_explicit_lanespec_and_errors():
     f2 = fleet.Fleet([make_flac(48000, 2, seed=83)], device="cpu")
     with pytest.raises(ValueError, match="kind"):
         f2.restore(0, {"kind": "engine", "fed": 0, "sub": {}})
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(TypeError, match="make_mesh"):
         fleet.Fleet([raw], mesh=object(), device="cpu")
+    station = (batch.LaneSpec("pcm8", 8000), raw)
+    meshed = fleet.Fleet([station], mesh=make_mesh(2, device="cpu"), device="cpu")
+    assert meshed.engine.mesh.size == 2
 
 
 @pytest.mark.parametrize("channels", [4, 1])

@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from aukit_tpu.codecs.qoa import QOA_DEQUANT as JAX_QOA_DEQUANT
+from aukit_tpu.codecs.qoa import decode_qoa as jax_decode_qoa
 from aukit_tpu.codecs.qoa import qoa_lms_scan
 from aukit_tpu.kernels.qoa_pallas import qoa_lms_pallas
 from aukit_tpu.stream.batch_codecs import _qoa_dequant_device
-from aukit_tpu_torch.codecs.qoa import QOA_DEQUANT, qoa_dequant
+from aukit_tpu_torch.codecs.qoa import QOA_DEQUANT, decode_qoa, qoa_dequant
 from aukit_tpu_torch.interop import kernel_state_from_numpy, kernel_state_to_numpy
 from aukit_tpu_torch.kernels.qoa_cuda import qoa_lms_kernel, qoa_lms_ref
+from tests import fixtures
 from tests import torch_kernel_cases as kernel_cases
 
 QOA_CASES = [c[0] for c in kernel_cases.qoa_cases("cpu")]
@@ -118,3 +120,20 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_checks_arguments():
                  lambda: qoa_lms_kernel(dq, hist.to(torch.int64), wts)):
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.parametrize("channels,frames", [(1, [5120, 5120]), (2, [5120, 700]), (3, [333])])
+def test_decode_qoa_native_route_is_the_fused_native_decode(channels, frames):
+    """``decode_qoa(use_native=True)`` is the JAX package's native route, the
+    fused ``flacbits.qoa_decode`` pass, bit for bit, on the fixtures' QOA
+    streams (a short final frame included); no kernel runs; and the kernel
+    route (kernel (f)'s plain version here) gives the same samples."""
+    raw = fixtures.qoa_stream(np.random.default_rng(17 + channels), channels, 44100, frames)
+    calls = qoa_lms_ref.calls
+    got = decode_qoa(raw, use_native=True, device="cpu")
+    assert qoa_lms_ref.calls == calls
+    want = jax_decode_qoa(raw, use_native=True)
+    assert got[0].dtype == want[0].dtype == np.int32
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    np.testing.assert_array_equal(got[0], decode_qoa(raw, use_native=False, device="cpu")[0])
