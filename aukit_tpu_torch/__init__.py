@@ -43,6 +43,7 @@ from .stream import (BatchDfpwmDecoder, BatchDfpwmEncoder, BatchEncodeEngine, Ba
                      encode_windows_many, lane_spec_for_aiff,
                      lane_spec_for_au, lane_spec_for_qoa, lane_spec_for_wav, mdfpwm_to_lanes,
                      transcode_fleet)
+from .utils.validation import check_bit_depth, check_data_type
 
 __version__ = "0.3.0"
 _REFERENCE_VERSION = "1.10.0"  # aukit.lua:98
@@ -77,7 +78,6 @@ def pcm(
 ) -> Audio:
     """Raw PCM -> Audio (reference aukit.pcm, aukit.lua:1049)."""
     from .ops import pcmcode
-    from .utils.validation import check_bit_depth, check_data_type
 
     check_bit_depth(bit_depth)
     check_data_type(data_type, bit_depth)
@@ -202,7 +202,6 @@ def new(duration: float, channels: int = 1, sample_rate: int = 48000, device="cu
 def pack(data, bit_depth: int = 8, data_type: str = "signed", big_endian: bool = False) -> bytes:
     """Sample values -> packed bytes (reference aukit.pack, aukit.lua:1861)."""
     from .ops import pcmcode
-    from .utils.validation import check_bit_depth, check_data_type
 
     check_bit_depth(bit_depth)
     check_data_type(data_type, bit_depth)

@@ -26,7 +26,7 @@ import struct
 import numpy as np
 import torch
 
-from ..config import require_device
+from ..config import CONFIG, require_device
 
 FIXED_COEFFS = [[], [1], [2, -1], [3, -3, 1], [4, -6, 4, -1]]
 
@@ -395,7 +395,12 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
     Returns restored_flat int64[sum(block)].
 
     The batch may span many independent streams (the FLAC fleet): subframes
-    are independent lanes, so the whole fleet restores in one call. With
+    are independent lanes, so the whole fleet restores in one call.
+    ``device=None`` decides as the JAX package does: the device route when
+    ``on`` is a CUDA device (the JAX package's TPU backend) and the batch,
+    ``S * T_max``, is at least ``CONFIG.flac_device_restore_min``; the host
+    route otherwise. A route to CUDA without a card raises, as
+    ``require_device`` does. With
     ``device=True`` the rows are staged as int32[S, T_max] and restored on
     the torch device ``on`` by ``lpc_restore_kernel`` (``lpc_restore_sharded``
     over that one device): the CUDA kernel on a card, its plain version on
@@ -411,19 +416,25 @@ def restore_flat(sub, coefs, values_flat, depth: int, device: bool | None = None
     over its shards instead, each restored on its device
     (``lpc_restore_sharded``, wrapped rows included), unless ``device`` is
     an explicit False: the host opt-out wins over the mesh, as in the JAX
-    package. Otherwise (``device`` None or False) the native C++ in-place
-    restore runs, else the numpy batch."""
+    package. Otherwise (the host route) the native C++ in-place restore
+    runs, else the numpy batch."""
     S = len(sub["order"])
     if S == 0:
         return np.zeros(0, np.int64)
     offs = np.concatenate([[0], np.cumsum(sub["block"])])
     T_max = int(sub["block"].max())
     keep = np.arange(T_max)[None, :] < np.asarray(sub["block"])[:, None]
-    routed = device or (mesh is not None and device is not False)
+    host_forced = device is False  # an explicit opt-out beats the mesh
+    if device is None:
+        device = (torch.device(on).type == "cuda"
+                  and S * T_max >= CONFIG.flac_device_restore_min)
+    routed = not host_forced and (device or mesh is not None)
     if routed and depth <= DEVICE_MAX_DEPTH and _fits_int32(values_flat):
         from ..kernels.flac_cuda import lpc_restore_sharded
         from ..parallel.mesh import device_mesh
 
+        if mesh is None:
+            require_device(on, "restore_flat")
         # staging scatters the flat values in one masked assignment
         # (row-major order == the parser's span order)
         vals = np.zeros((S, T_max), np.int32)

@@ -26,6 +26,14 @@ class Config:
     # re-seed; Q28: a malformed IMA step index errors the stream); False
     # keeps the fixed semantics, as in the JAX package
     compat_quirks: bool = False
+    # the least restore batch (subframes x largest block) that
+    # ``codecs.flac.restore_flat(device=None)`` sends to kernel (g) when its
+    # rows are to land on a CUDA device: the default route of
+    # ``FlacFleet(device_restore=None)``, of ``Fleet`` and of ``austream
+    # --fleet``. A smaller batch, and any batch bound for the CPU, takes the
+    # native host restore. The default, the JAX package's, keeps every such
+    # batch on the host; 0 sends every batch of depth <= 24 to the card.
+    flac_device_restore_min: int = 1 << 62
 
 
 CONFIG = Config()

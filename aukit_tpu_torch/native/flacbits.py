@@ -1,5 +1,6 @@
 """ctypes bindings for the native FLAC bitstream parser (``native/flacbits.cpp``)
-— the entry points of ``aukit_tpu.native.flacbits`` that the FLAC fleet calls,
+— the entry points of ``aukit_tpu.native.flacbits``: the ones the FLAC fleet
+calls, the padded-rows LPC restore ``restore_lpc``,
 the host DFPWM decode that ``Fleet.seek`` replays a lane's prefix with and
 ``DfpwmStreamDecoder`` routes host bytes through, the host DFPWM encode and
 QOA LMS, the fused whole-file FLAC and QOA decodes (``decode_full``,
@@ -110,6 +111,8 @@ def _load():
                                     ctypes.c_int32, ctypes.c_int32, ctypes.c_int64]
     lib.qoa_decode_free.restype = None
     lib.qoa_decode_free.argtypes = [ctypes.POINTER(_QoaDecodeResult)]
+    lib.flac_restore.restype = None
+    lib.flac_restore.argtypes = [_I64P] * 5 + [ctypes.c_int64] * 2
     lib.flac_restore_flat.restype = None
     lib.flac_restore_flat.argtypes = [_I64P] * 7 + [ctypes.c_int64]
     lib.block_resample_rows.restype = None
@@ -246,6 +249,31 @@ def restore_lpc_flat(flat: np.ndarray, offsets: np.ndarray, blocks: np.ndarray,
     lib.flac_restore_flat(flat.ctypes.data_as(_I64P), *(a.ctypes.data_as(_I64P) for a in arrs),
                           len(blocks))
     return flat
+
+
+def restore_lpc(values: np.ndarray, blocks: np.ndarray, orders: np.ndarray,
+                shifts: np.ndarray, coefs: np.ndarray) -> np.ndarray:
+    """In-place batched LPC restore over values[S, T] int64 (C-contiguous):
+    the padded-rows layout of the JAX package's binding of the same name.
+    Raises ValueError where the C loop would index or shift out of range
+    (coefs not [S, 32], a block outside [0, T], an order outside [0, 32], a
+    shift outside [-63, 63]), which the JAX binding passes through."""
+    lib = _lib()
+    values = np.ascontiguousarray(values, np.int64)
+    # hold references: ascontiguousarray temporaries must outlive the C call
+    arrs = [np.ascontiguousarray(a, np.int64) for a in (blocks, orders, shifts, coefs)]
+    if values.ndim != 2:
+        raise ValueError(f"values must be [S, T], got shape {values.shape}")
+    S, T = values.shape
+    blocks, orders, shifts, coefs = arrs
+    if coefs.shape != (S, 32) or any(a.shape != (S,) for a in (blocks, orders, shifts)):
+        raise ValueError("blocks, orders and shifts must be [S] and coefs [S, 32]")
+    if S and (blocks.min() < 0 or blocks.max() > T or orders.min() < 0 or orders.max() > 32
+              or np.abs(shifts).max() > 63):
+        raise ValueError("a block, order or shift is out of the restore's range")
+    lib.flac_restore(values.ctypes.data_as(_I64P), *(a.ctypes.data_as(_I64P) for a in arrs),
+                     S, T)
+    return values
 
 
 def block_resample_rows(ext: np.ndarray, ffx: np.ndarray, frac: np.ndarray,

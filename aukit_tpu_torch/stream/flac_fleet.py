@@ -18,7 +18,10 @@ Three routes, as in the JAX package:
 
 - **host** (``device_dsp=False``, the default): the native/numpy int64
   restore and float64 DSP, each lane bit-equal to the JAX fleet's host route
-  and so to a solo ``stream.flac`` run. It runs no kernel.
+  and so to a solo ``stream.flac`` run. It runs no kernel, unless
+  ``CONFIG.flac_device_restore_min`` sends a step's restore to kernel (g)
+  (``device_restore=None`` on a CUDA ``device``), which gives the same
+  samples.
 - **staged device DSP** (``device_restore=False, device_dsp=True``): host
   restore, then the resample and the lowpass on the torch device, the
   lowpass through kernel (h) ``iir_zero_kernel``.
@@ -214,8 +217,12 @@ class FlacFleet:
     ----------
     lanes : number of concurrent streams
     device_restore : the batched LPC restore on ``device`` through kernel (g)
-        (True), on the host (False), or the default (None): the host on the
-        host and staged routes, the device on the device-resident route.
+        (True), on the host (False), or the default (None): on the host and
+        staged routes ``CONFIG.flac_device_restore_min`` decides
+        (``codecs.flac.restore_flat``: kernel (g) when ``device`` is CUDA and
+        a step's batch, subframes x largest block, reaches it; the host
+        otherwise, and always at the field's default), on the
+        device-resident route the device.
     mesh : optional ``parallel.pipeline.make_mesh`` mesh: the restore and the
         block lowpass rows shard over it (see the module docstring); the
         fleet's device routes run on its first device.

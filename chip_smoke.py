@@ -24,8 +24,11 @@ and the multi-device layer: the 32768-lane DFPWM engine over four lane
 shards of one card (and over every card where there are two or more),
 sharded_pipeline_step, sharded check-size engines of every kind and
 MultiHostEngine in two processes over gloo, each equal to its unsharded card
-run), and times the kernels, each beside its bound on the card, also at the
-whole-file loaders' and the iterators' shapes. Each phase prints its lines
+run; and the three example servers of aukit_tpu_torch.examples at half
+their fleet width, the FLAC one on the host restore and on kernel (g), each
+equal to its CPU run at a check size, the CPU runs in a process of their
+own with no card visible), and times the kernels, each beside its bound on
+the card, also at the whole-file loaders' and the iterators' shapes. Each phase prints its lines
 (and its seconds on the closing ``[phase_seconds]`` line); any failure
 raises, so the exit code is non-zero and the closing result line is not
 printed. It exits non-zero at once without a CUDA device.
@@ -33,15 +36,20 @@ Imports only torch, numpy, aukit_tpu_torch and tests/fixtures.py (numpy and
 struct only), tests/torch_kernel_cases.py and tests/torch_tracks.py (both
 numpy, torch and aukit_tpu_torch only), each by path; it runs
 tests/torch_dist_worker.py (torch, numpy and aukit_tpu_torch only) in two
-processes.
+processes, and itself, with no card visible, in a process for the example
+servers' CPU runs and one for each phase's CPU replays of recorded kernel
+calls, each going on alongside the card work.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import hashlib
 import importlib.util
+import inspect
+import io
 import json
 import os
 import re
@@ -65,6 +73,7 @@ from aukit_tpu_torch import effects as tfx
 from aukit_tpu_torch.codecs.adpcm import MSADPCM_ADAPTION, MSADPCM_DEFAULT_COEFFS
 from aukit_tpu_torch.codecs.dfpwm import DfpwmState
 from aukit_tpu_torch.containers.wav import pcm_wav_header
+from aukit_tpu_torch.examples import batch_server, flac_radio_fleet, mixed_fleet_server
 from aukit_tpu_torch.kernels import _build
 from aukit_tpu_torch.kernels import adpcm_cuda as ka
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc
@@ -3971,6 +3980,11 @@ def accumulate(total: dict, counts: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
+def stop(proc) -> None:
+    proc.kill()
+    proc.wait()
+
+
 # the wrappers the sharded paths launch, by their name in the launch counts,
 # with their plain versions
 SHARDED_KERNELS = {
@@ -3987,7 +4001,14 @@ SHARDED_KERNELS = {
 # cheaper on the CPU than on the card for a few rows: the DFPWM kernels'
 # recorded calls of one signature replay as one call, stacked by rows
 STACKED_REPLAYS = ("dfpwm_decode", "dfpwm_decode_dsp", "dfpwm_encode")
+# their per-lane parameters: every tensor these hold, and every tensor of
+# the result, has the call's rows first; no other parameter holds a tensor
+LANE_PARAMS = {"dfpwm_decode": ("bytes_u8", "state"),
+               "dfpwm_decode_dsp": ("bytes_u8", "state", "mask", "gain"),
+               "dfpwm_encode": ("levels_i8", "state")}
+REPLAY_BLOCK_ROWS = 32  # one thread block of the DFPWM kernels (LANES, csrc/dfpwm.cu)
 CARD_REPLAY_ROWS = 4096  # a replay this wide runs on the card, a narrower one on the CPU
+REPLAY_TIMEOUT = 600  # the process of the CPU replays
 
 
 def map_tree(fn, x):
@@ -4127,48 +4148,144 @@ def meshed_run(launches: dict, run, calls: dict | None = None, case: str = ""):
     return out
 
 
-def replay_sharded_calls(calls: dict) -> dict:
-    """Each kernel's recorded first and last launch of every sharded case
-    against its plain version on the same inputs: the DFPWM kernels' calls
-    of one signature stacked by rows into one plain call, every other call
-    replayed alone; on the card from CARD_REPLAY_ROWS rows, on the CPU below
-    (the plain loops take a Python step a sample whatever the rows).
-    -> max |error| by kernel."""
-    errs = {}
+def held_rows(rows: int) -> torch.Tensor | None:
+    """The rows of a DFPWM call that its replay holds: the REPLAY_BLOCK_ROWS
+    rows from the call's start, from a quarter, a half and three quarters
+    of the way (each rounded down to a thread block's start) and up to its
+    end: five thread blocks spread over the grid (None: every row, where
+    that is no more)."""
+    B = REPLAY_BLOCK_ROWS
+    starts = {min(rows * k // 4 // B * B, max(rows - B, 0)) for k in range(4)} | {max(rows - B, 0)}
+    keep = torch.unique(torch.cat([torch.arange(s, min(s + B, rows)) for s in starts]))
+    return None if len(keep) >= rows else keep
+
+
+def held_call(name: str, made):
+    """A recorded DFPWM call ((args, kwargs), (result, kwargs)) cut to its
+    ``held_rows``: only the kernel's LANE_PARAMS and its result are cut, and
+    each must hold the call's rows first; any other parameter that holds a
+    tensor fails the check."""
+    (args, kwargs), (out, kw_after) = made
+    rows = args[0].shape[0]
+    keep = held_rows(rows)
+    if keep is None:
+        return made
+    params = list(inspect.signature(SHARDED_KERNELS[name][1]).parameters)
+
+    def cut(param, value):
+        tensors = [t for t in tree_leaves(value) if torch.is_tensor(t)]
+        if param in LANE_PARAMS[name] or param == "result":
+            check(all(t.dim() and t.shape[0] == rows for t in tensors),
+                  f"{name}: every tensor of {param} has the call's {rows} rows first")
+            return map_tree(lambda t: t[keep.to(t.device)], value)
+        check(not tensors, f"{name}: {param}, not a per-lane parameter, holds no tensor")
+        return value
+
+    def cut_kwargs(k):
+        return {p: cut(p, v) for p, v in k.items()}
+
+    return ((tuple(cut(p, v) for p, v in zip(params, args)), cut_kwargs(kwargs)),
+            (cut("result", out), cut_kwargs(kw_after)))
+
+
+def replay_error(name: str, inputs, want, on: str) -> float:
+    """max |error| of kernel ``name``'s plain version on ``on``, given a
+    recorded call's (args, kwargs), against the recorded (result, kwargs)."""
+    args, kwargs = map_tree(lambda t: t.to(on, copy=True), inputs)
+    return tree_err((SHARDED_KERNELS[name][1](*args, **kwargs), kwargs), want)
+
+
+def replay_saved(path: str) -> None:
+    """The CPU replays that ``replay_recorded_calls`` saved to ``path``, as
+    one ``REPLAYED <json>`` line: [kernel, cases, max |error|, seconds]."""
+    torch.set_num_threads(1)
+    done = []
+    for name, cases, inputs, want in torch.load(path, weights_only=False):
+        t0 = time.perf_counter()
+        done.append((name, cases, replay_error(name, inputs, want, "cpu"),
+                     time.perf_counter() - t0))
+    print("REPLAYED " + json.dumps(done), flush=True)
+
+
+def replay_recorded_calls(calls: dict, line: str):
+    """Each kernel's recorded first and last launch of every case against its
+    plain version on the same inputs: of the DFPWM kernels' calls five
+    thread blocks spread over the grid (``held_rows``), the calls of one
+    signature stacked by rows into one plain call; every other call
+    replayed alone, whole. A replay of CARD_REPLAY_ROWS rows or more runs
+    here on the card; a narrower one on the CPU (the plain loops take a
+    Python step a sample whatever the rows), in a process of its own
+    (``replay_saved``, no card visible) that goes on while the caller does
+    other work. -> ``finish()``: waits for that process, prints one
+    ``[line]`` line a kernel, checks every replay exact -> max |error| by
+    kernel."""
     by_kernel: dict = {}
     for key, made in calls.items():
         if len(key) == 2:
             by_kernel.setdefault(key[0], []).extend((key[1], m) for m in made)
+    done, saved, stats = [], [], {}
     for name, items in by_kernel.items():
-        plain = SHARDED_KERNELS[name][1]
         if name in STACKED_REPLAYS:
+            items = [(case, held_call(name, m)) for case, m in items]
             groups: dict = {}
             for case, m in items:
                 groups.setdefault(tree_signature(m[0]), []).append((case, m))
             batches = list(groups.values())
         else:
             batches = [[item] for item in items]
-        err, t0, replays = 0.0, sync_time(), []
+        rows = []
         for batch in batches:
             inputs, want = batch[0][1] if len(batch) == 1 else (
                 stack_trees([m[k] for _, m in batch]) for k in (0, 1))
-            rows = max((t.shape[0] for t in tree_leaves(inputs) if torch.is_tensor(t) and t.dim()),
-                       default=0)
-            on = CARD if rows >= CARD_REPLAY_ROWS else "cpu"
-            args, kwargs = map_tree(lambda t: t.to(on, copy=True), inputs)
-            got = plain(*args, **kwargs)
-            e = tree_err(map_tree(lambda t: t.to(CARD), (got, kwargs)), want)
-            err = max(err, e)
-            replays.append((rows, on, sorted({c for c, _ in batch})))
-            check(e == 0, f"{name}: kernel == plain on the sharded path's calls "
-                          f"{sorted({c for c, _ in batch})} ({e})")
-        say("multi_gpu_kernel", kernel=name, calls=len(items), plain_calls=len(batches),
-            widest_rows=max(r for r, _, _ in replays),
-            on_card=sum(on == CARD for _, on, _ in replays),
-            cases=json.dumps(sorted({c for c, _ in items})), max_abs_err=err,
-            plain_seconds=round(sync_time() - t0, 3))
-        errs[name] = err
-    return errs
+            rows.append(max((t.shape[0] for t in tree_leaves(inputs)
+                             if torch.is_tensor(t) and t.dim()), default=0))
+            cases = sorted({c for c, _ in batch})
+            if rows[-1] >= CARD_REPLAY_ROWS:
+                t0 = sync_time()
+                done.append((name, cases, replay_error(name, inputs, want, CARD),
+                             sync_time() - t0))
+            else:
+                saved.append((name, cases, *map_tree(lambda t: t.cpu(), (inputs, want))))
+        stats[name] = (len(items), len(batches), max(rows),
+                       sum(r >= CARD_REPLAY_ROWS for r in rows),
+                       sorted({c for c, _ in items}))
+    path = os.path.join(tempfile.mkdtemp(), "replays.pt")
+    torch.save(saved, path)
+    log = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import sys, chip_smoke; chip_smoke.replay_saved(sys.argv[1])", path],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(stop, proc)
+
+    def finish() -> dict:
+        t0 = time.perf_counter()
+        try:
+            proc.wait(timeout=REPLAY_TIMEOUT)
+            log.seek(0)
+            text = log.read()
+        finally:
+            stop(proc)
+            log.close()
+            os.remove(path)
+            os.rmdir(os.path.dirname(path))
+        check(proc.returncode == 0 and "REPLAYED " in text,
+              f"the CPU replays ran ({proc.returncode}):\n{text[-3000:]}")
+        replayed = json.loads(text.split("REPLAYED ", 1)[1].splitlines()[0])
+        check(len(replayed) == len(saved), "every CPU replay ran")
+        errs = {}
+        for name, (n_calls, n_plain, widest, on_card, cases) in stats.items():
+            mine = [r for r in done + replayed if r[0] == name]
+            for _, batch_cases, e, _ in mine:
+                check(e == 0, f"{name}: kernel == plain on the recorded calls {batch_cases} ({e})")
+            errs[name] = max(e for _, _, e, _ in mine)
+            say(line, kernel=name, calls=n_calls, plain_calls=n_plain, widest_rows=widest,
+                on_card=on_card, cases=json.dumps(cases), max_abs_err=errs[name],
+                plain_seconds=round(sum(s for _, _, _, s in mine), 3))
+        say(f"{line}_process", waited_seconds=round(time.perf_counter() - t0, 3))
+        return errs
+
+    return finish
 
 
 def sharded_vs_plain_full(label: str, mesh, host: np.ndarray, launches: dict,
@@ -4343,9 +4460,10 @@ def phase_multi_gpu() -> tuple[dict, dict]:
     encode engine, the FLAC fleet on its host and device routes, and the
     Fleet facade over six kinds of station. Every sharded launch of these
     runs goes through a recorder, and each kernel's first and last launch of
-    each run are held to its plain version on the same inputs
-    (``replay_sharded_calls``). Then MultiHostEngine in two processes
-    (``phase_multihost``). Returns (the launches of every sharded run, each
+    each run are held to its plain version on the same inputs (the DFPWM
+    kernels' on five thread blocks spread over each call:
+    ``replay_recorded_calls``; the CPU replays go on alongside
+    MultiHostEngine in two processes, ``phase_multihost``). Returns (the launches of every sharded run, each
     run's counts zeroed just before and read just after; max |error| of
     each kernel against its plain version at the sharded shapes)."""
     launches: dict = {}
@@ -4428,10 +4546,11 @@ def phase_multi_gpu() -> tuple[dict, dict]:
     sharded_vs_plain("fleet", lambda m: Fleet(sources, mesh=m, mono=False, channels=2,
                                               device_restore=True, device_dsp=True),
                      drive_fleet_check, launches, calls)
-    errs = replay_sharded_calls(calls)
+    finish = replay_recorded_calls(calls, "multi_gpu_kernel")
     del calls
     torch.cuda.empty_cache()
     phase_multihost(launches)
+    errs = finish()
     ran = ("dfpwm_decode", "dfpwm_decode_dsp", "dfpwm_encode", "ima_decode", "msadpcm_decode",
            "qoa_lms", "lpc_restore", "iir_zero", "fma")
     say("multi_gpu_launches", **launches)
@@ -4441,10 +4560,240 @@ def phase_multi_gpu() -> tuple[dict, dict]:
     return launches, errs
 
 
+# -- the example servers ----------------------------------------------------------------
+
+EXAMPLES = {"batch_server": batch_server, "flac_radio_fleet": flac_radio_fleet,
+            "mixed_fleet_server": mixed_fleet_server}
+# the fleet widths (8192 lanes, FLAC_LANES and FLEET_STATIONS stations) are
+# halved: at full width the phase took 260 s, against its budget of ~90 s
+EXAMPLE_WIDTH_CUT = 2
+# each example's arguments at the cut width, and at the check size that the
+# CPU runs too: batch_server's 2 s give each lane two 6000-byte chunks, so
+# the check crosses ticks with starved, carried and recycled lanes (the
+# plain DFPWM encode and decode loops cost ~100 us a step on the CPU, the
+# decode 48000 steps a tick whatever the stream's length)
+EXAMPLE_ARGS = {"batch_server": ((8192 // EXAMPLE_WIDTH_CUT, 2.0), (8, 2.0)),
+                "flac_radio_fleet": ((FLAC_LANES // EXAMPLE_WIDTH_CUT, 6), (8, 6)),
+                "mixed_fleet_server": ((FLEET_STATIONS // EXAMPLE_WIDTH_CUT, 3, 1), (9, 1, 1))}
+# the check-size runs: flac_radio_fleet at the field's default and at 0
+EXAMPLE_CHECKS = (("batch_server", None), ("flac_radio_fleet", None), ("flac_radio_fleet", 0),
+                  ("mixed_fleet_server", None))
+EXAMPLE_CPU_TIMEOUT = 600  # the CPU runs of the check sizes, in their own process
+EXAMPLE_TIMES = ("wall_seconds", "realtime_factor")
+EXAMPLE_KERNELS = ("dfpwm_decode_dsp", "dfpwm_encode", "ima_decode", "lpc_restore", "fma")
+
+
+def window_keeper():
+    """(``on_window`` for an example's ``main()``, ``digest()``): the first
+    keeps each tick's step result (tensors cloned on their device, host
+    arrays copied); the second gives the SHA-256 of every window, mask and
+    position kept, so the hashing stays out of the example's wall time."""
+    kept = []
+
+    def on_window(*result):
+        kept.append(tuple(a.clone() if torch.is_tensor(a) else np.array(a) for a in result))
+
+    def digest() -> str:
+        sha = hashlib.sha256()
+        for result in kept:
+            for a in result:
+                sha.update(np.ascontiguousarray(a.cpu().numpy() if torch.is_tensor(a) else a)
+                           .tobytes())
+        return sha.hexdigest()
+
+    return on_window, digest
+
+
+def run_example(name: str, args, device: str = "cuda", windows: bool = False,
+                restore_min: int | None = None) -> dict:
+    """``main(*args)`` of an example on ``device``, its printed lines kept out
+    of this script's output, with ``CONFIG.flac_device_restore_min`` at
+    ``restore_min`` for the run (at its default when None) -> its summary;
+    with ``windows``, ``windows_sha256`` (``window_keeper``) too."""
+    saved = tk.CONFIG.flac_device_restore_min
+    if restore_min is not None:
+        tk.CONFIG.flac_device_restore_min = restore_min
+    on_window, digest = window_keeper() if windows else (None, None)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = EXAMPLES[name].main(*args, device=device, on_window=on_window)
+    finally:
+        tk.CONFIG.flac_device_restore_min = saved
+    if windows:
+        out["windows_sha256"] = digest()
+    return out
+
+
+def untimed(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in EXAMPLE_TIMES}
+
+
+def example_checks(device: str) -> list:
+    """Each EXAMPLE_CHECKS run at its check size on ``device`` -> [(name,
+    restore_min, untimed summary with windows_sha256, seconds)]."""
+    done = []
+    for name, restore_min in EXAMPLE_CHECKS:
+        t0 = time.perf_counter()
+        out = run_example(name, EXAMPLE_ARGS[name][1], device, True, restore_min)
+        done.append((name, restore_min, untimed(out), time.perf_counter() - t0))
+    return done
+
+
+def cpu_example_checks() -> None:
+    """``example_checks("cpu")`` as one ``EXAMPLES_CPU <json>`` line; run by
+    ``phase_examples`` in a process of its own with no card visible."""
+    torch.set_num_threads(1)
+    print("EXAMPLES_CPU " + json.dumps(example_checks("cpu")), flush=True)
+
+
+def example_full_width(case: str, name: str, launches: dict, calls: dict, **kw) -> dict:
+    """One example at its (cut) fleet width on the card, every launch recorded into
+    ``calls`` under ``case``, its launch counts zeroed just before and read
+    just after (added to ``launches``); one ``[examples]`` line: the seconds
+    of the whole run and of its serving loop, the realtime factor, the
+    launches and the peak device memory."""
+    args = EXAMPLE_ARGS[name][0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+    t0 = sync_time()
+    out = meshed_run(counts, lambda: run_example(name, args, **kw), calls, case)
+    seconds = sync_time() - t0
+    accumulate(launches, counts)
+    say("examples", case=case, args=json.dumps(args), seconds=round(seconds, 3),
+        serving_seconds=round(out["wall_seconds"], 4),
+        realtime_factor=round(out["realtime_factor"], 1), ticks=out["ticks"],
+        samples_decoded=out["samples_decoded"], launches=json.dumps({k: v for k, v in counts.items() if v}),
+        max_memory_allocated_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    return out
+
+
+def start_cpu_example_checks() -> tuple:
+    """``cpu_example_checks`` in a process of its own with no card visible,
+    started early so that its plain loops (~140 s, batch_server's 8 lanes x
+    2 s the most) run alongside the card phases -> (the process, its
+    output file) for ``phase_examples``. The process is stopped at exit."""
+    log = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import chip_smoke; chip_smoke.cpu_example_checks()"],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(stop, proc)
+    return proc, log
+
+
+@phase
+def phase_examples(cpu_checks: tuple) -> tuple[dict, object]:
+    """The three example servers of ``aukit_tpu_torch.examples`` as a user
+    runs them (``main()``, the card by default), at fleet width halved
+    (EXAMPLE_WIDTH_CUT): batch_server at 4096 lanes x 2 s (kernel (c)
+    encodes each client's tone, (b) decodes every tick), flac_radio_fleet at
+    1024 stations x 6 s (the host restore at the field's default),
+    mixed_fleet_server at 1536 stations x 3 s with one rotation of every
+    station onto a fresh source ((b), (d), the FMA; FLAC on the host
+    restore). Every launch of these runs goes through the recorder, and
+    each kernel's first and last launch is replayed through its plain
+    version (``[examples_kernel]``, printed by ``phase_examples_replays``
+    once the CPU replays, which go on alongside the phases after this one,
+    are done). Each example at its check size on the
+    card equals its CPU run, time fields masked and a SHA-256 of every
+    window compared (``[examples_check]``; the CPU runs come from the
+    process of ``start_cpu_example_checks``). ``[examples_flac_route]``:
+    flac_radio_fleet at that width again with ``flac_device_restore_min =
+    0`` (kernel (g)), its summary and windows equal to the host restore's,
+    each run's serving seconds, (g)'s launches and the range of a step's
+    restore batch (subframes x largest block). -> (the launches of the
+    fleet-width runs; the replays' ``finish``)."""
+    cpu, log = cpu_checks
+    try:
+        launches, finish = examples_on_card()
+        card = example_checks("cuda")
+        t0 = time.perf_counter()
+        cpu.wait(timeout=EXAMPLE_CPU_TIMEOUT)
+        waited = time.perf_counter() - t0
+        log.seek(0)
+        text = log.read()
+    finally:
+        stop(cpu)
+        log.close()
+    check(cpu.returncode == 0 and "EXAMPLES_CPU " in text,
+          f"the CPU runs of the check sizes ran ({cpu.returncode}):\n{text[-3000:]}")
+    cpu_runs = json.loads(text.split("EXAMPLES_CPU ", 1)[1].splitlines()[0])
+    check([tuple(r[:2]) for r in cpu_runs] == [r[:2] for r in card],
+          "every check size ran on the card and on the CPU")
+    for (name, restore_min, on_card, card_s), (_, _, on_cpu, cpu_s) in zip(card, cpu_runs):
+        # through JSON, as the CPU runs came: tuples as lists
+        same_run = json.loads(json.dumps(on_card)) == on_cpu
+        say("examples_check", example=name, args=json.dumps(EXAMPLE_ARGS[name][1]),
+            flac_device_restore_min=restore_min, equal=same_run, ticks=on_card["ticks"],
+            live=json.dumps(on_card["live"]), card_seconds=round(card_s, 3),
+            cpu_seconds=round(cpu_s, 3))
+        check(same_run, f"{name}{EXAMPLE_ARGS[name][1]}: card run == CPU run")
+    say("examples_cpu_process", waited_seconds=round(waited, 3))
+    say("examples_launches", **launches)
+    check(all(launches.get(k, 0) > 0 for k in EXAMPLE_KERNELS),
+          f"kernels (b), (c), (d), (g) and the FMA ran in the examples ({launches})")
+    return launches, finish
+
+
+@phase
+def phase_examples_replays(finish) -> dict:
+    """The end of ``[examples]``' replays (``replay_recorded_calls``), whose
+    CPU part went on alongside the phases since -> max |error| by kernel."""
+    errs = finish()
+    check(sorted(errs) == sorted(EXAMPLE_KERNELS),
+          f"every kernel held to its plain version ({sorted(errs)})")
+    return errs
+
+
+def examples_on_card() -> tuple[dict, object]:
+    """The fleet-width runs of ``phase_examples`` and the FLAC route line;
+    the replays of their recorded launches started -> (launches, the
+    replays' ``finish``)."""
+    launches: dict = {}
+    calls: dict = {}
+    example_full_width("batch_server", "batch_server", launches, calls)
+    example_full_width("mixed_fleet_server", "mixed_fleet_server", launches, calls)
+    batches: list = []
+    restore = ff.flac_codec.restore_flat
+
+    def sized(sub, *args, **kwargs):
+        if len(sub["order"]):
+            batches.append(len(sub["order"]) * int(sub["block"].max()))
+        return restore(sub, *args, **kwargs)
+
+    route = {}
+    ff.flac_codec.restore_flat = sized
+    try:
+        for label, restore_min in (("host", None), ("kernel_g", 0)):
+            batches.clear()
+            g0 = launches.get("lpc_restore", 0)
+            out = example_full_width(f"flac_radio_fleet_{label}", "flac_radio_fleet", launches,
+                                     calls, windows=True, restore_min=restore_min)
+            route[label] = (out, launches.get("lpc_restore", 0) - g0, list(batches))
+    finally:
+        ff.flac_codec.restore_flat = restore
+    (host, host_g, host_sizes), (dev, dev_g, dev_sizes) = route["host"], route["kernel_g"]
+    equal = untimed(host) == untimed(dev)
+    say("examples_flac_route", stations=EXAMPLE_ARGS["flac_radio_fleet"][0][0], equal=equal,
+        host_serving_seconds=round(host["wall_seconds"], 4), host_lpc_launches=host_g,
+        kernel_g_serving_seconds=round(dev["wall_seconds"], 4), kernel_g_lpc_launches=dev_g,
+        restores=len(dev_sizes), restore_batch_min=min(dev_sizes),
+        restore_batch_max=max(dev_sizes))
+    check(equal, "flac_radio_fleet: kernel (g)'s route == the host restore (summary and windows)")
+    check(host_g == 0 and dev_g == len(dev_sizes) == len(host_sizes),
+          f"the host route launches no (g), the field at 0 one a step ({host_g}, {dev_g})")
+    finish = replay_recorded_calls(calls, "examples_kernel")
+    del calls
+    torch.cuda.empty_cache()
+    return launches, finish
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    cpu_checks = start_cpu_example_checks()
     phase_golden()
     errs = phase_kernel_vs_plain()
     path_errs = phase_redesigned_kernel_paths()
@@ -4493,6 +4842,8 @@ def main() -> None:
     phase_auplay_step_breakdown()
     phase_fleet_check()
     path_launches.append(phase_fleet_main_path())
+    example_launches, example_replays = phase_examples(cpu_checks)
+    path_launches.append(example_launches)
     whole_launches, whole_fma_err = phase_whole_file()
     path_launches.append(whole_launches)
     for name, err in whole_file_kernel_shapes().items():
@@ -4506,6 +4857,9 @@ def main() -> None:
         key = {"ima_decode": "ima", "msadpcm_decode": "msadpcm", "qoa_lms": "qoa"}.get(name, name)
         errs[key] = max(errs.get(key, 0), err)
     path_launches.append(phase_cli())
+    for name, err in phase_examples_replays(example_replays).items():
+        key = {"ima_decode": "ima"}.get(name, name)
+        errs[key] = max(errs.get(key, 0), err)
     multi_launches, multi_errs = phase_multi_gpu()
     path_launches.append(multi_launches)
     for name, err in multi_errs.items():

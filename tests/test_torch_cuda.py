@@ -489,6 +489,48 @@ def test_flac_fleet_on_cuda_matches_cpu():
         assert (lpc_restore_kernel.launches > counts[0]) == kw["device_restore"]
 
 
+@pytest.mark.parametrize("restore_min", ["default", 0])
+def test_flac_fleet_default_restore_follows_the_field(restore_min):
+    """``FlacFleet(device_restore=None)`` on the card: with
+    ``CONFIG.flac_device_restore_min`` at 0 each step's restore launches
+    kernel (g), at the default none; the windows, masks and positions equal
+    the host route's (``device_restore=False``) bit for bit."""
+    from aukit_tpu_torch import FlacFleet
+    from aukit_tpu_torch.config import CONFIG
+    from aukit_tpu_torch.examples.flac_radio_fleet import _make_station
+
+    rng = np.random.default_rng(9)
+    streams = [_make_station(rng, 3) for _ in range(4)]
+    saved = CONFIG.flac_device_restore_min
+    runs = []
+    try:
+        if restore_min != "default":
+            CONFIG.flac_device_restore_min = restore_min
+        for device_restore in (None, False):
+            launches = lpc_restore_kernel.launches
+            fleet = FlacFleet(len(streams), device_restore=device_restore, device="cuda")
+            steps = []
+            for off in range(0, len(streams[0]), 40000):
+                for lane, d in enumerate(streams):
+                    fleet.feed(lane, d[off: off + 40000])
+                steps.append(fleet.step())
+            for lane in range(len(streams)):
+                fleet.feed(lane, None)
+            while not fleet.done:
+                steps.append(fleet.step())
+            runs.append((steps, lpc_restore_kernel.launches - launches))
+    finally:
+        CONFIG.flac_device_restore_min = saved
+    (got, field_launches), (want, host_launches) = runs
+    assert host_launches == 0
+    assert (field_launches > 0) == (restore_min == 0)
+    assert len(got) == len(want) and any(s is not None for s in got)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        for a, b in zip(g or (), w or ()):
+            np.testing.assert_array_equal(a, b)
+
+
 # -- the write path: kernel (c), the encode engines, per-channel windows ------------------
 
 @pytest.mark.parametrize("lanes,nsamples", [(1, 8), (65, 264), (300, 776)])
