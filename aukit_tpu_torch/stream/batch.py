@@ -58,6 +58,7 @@ from ..kernels.fma_cuda import fma_kernel
 from ..ops.scan import linear_scan
 from ..parallel.mesh import check_mesh, gather_rows, lane_layout, padded_rows
 from ..parallel.pipeline import dsp_chain, fir_alpha
+from ..utils.trace import span
 from .batch_codecs import LaneSpec, _mono, build_decoder, geometry, init_state
 
 __all__ = ["LaneSpec", "BatchStreamEngine", "BatchDfpwmDecoder", "BatchMetrics"]
@@ -65,18 +66,19 @@ __all__ = ["LaneSpec", "BatchStreamEngine", "BatchDfpwmDecoder", "BatchMetrics"]
 
 @dataclasses.dataclass
 class BatchMetrics:
-    """Per-engine counters."""
+    """Per-engine counters, added once a step (never per lane). The
+    ``utils.trace`` spans carry their change over each span. Step time is
+    what the ``aukit.*.step`` spans measure under a profiler."""
 
     steps: int = 0
     samples_decoded: int = 0
-    wall_seconds: float = 0.0
     underruns: int = 0  # steps where some active lane had no data
-
-    @property
-    def realtime_factor(self) -> float:
-        if self.wall_seconds == 0:
-            return 0.0
-        return self.samples_decoded / self.wall_seconds / CONFIG.output_rate
+    bytes_staged: int = 0  # fed bytes moved into staged matrices
+    htod_copies: int = 0  # copies of host arrays onto the engine's device
+    htod_bytes: int = 0
+    lanes_ready: int = 0  # lane chunks decoded from real bytes
+    frames_parsed: int = 0  # FlacFleet: frames committed by the parse
+    bytes_parsed: int = 0  # FlacFleet: the committed frames' bytes
 
 
 # -- device FIFO helpers ------------------------------------------------------------
@@ -350,6 +352,18 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
+def _copy_in(m: BatchMetrics, x, device: torch.device) -> torch.Tensor:
+    """``_to_device`` for a step, inside an ``aukit.engine.htod`` span; a
+    copy from the host (a numpy array, or a tensor on another device's
+    host memory) counts in ``m``'s ``htod_copies`` and ``htod_bytes``."""
+    with span("aukit.engine.htod", m):
+        out = _to_device(x, device)
+    if isinstance(x, np.ndarray) or (x.device.type == "cpu" and out.device.type != "cpu"):
+        m.htod_copies += 1
+        m.htod_bytes += x.nbytes
+    return out
+
+
 class _Shard:
     """One shard of a group: rows [lo, hi) of its padded device lanes on
     ``device``, with the tensors the group carries across steps for them."""
@@ -365,17 +379,15 @@ class _Shard:
         self.filt_x = torch.zeros_like(self.fir)
         self.state = init_state(spec, rows, device)
 
-    def rows(self, a: np.ndarray) -> torch.Tensor:
-        """This shard's rows of a host per-lane array, on its device."""
-        return torch.tensor(a[self.lo:self.hi], device=self.device)
-
 
 class _Group:
     """Lanes sharing one LaneSpec: device step + staging + output FIFO."""
 
     def __init__(self, spec: LaneSpec, slots: np.ndarray, device: torch.device,
-                 out_rate: int, mono: bool = True, mode: str = "linear", mesh=None):
+                 out_rate: int, mono: bool = True, mode: str = "linear", mesh=None,
+                 metrics: BatchMetrics | None = None):
         self.spec = spec
+        self.metrics = BatchMetrics() if metrics is None else metrics  # the engine's
         self.slots = slots  # external lane ids, in engine order
         self.lanes = len(slots)
         self.mono = mono
@@ -449,6 +461,11 @@ class _Group:
         """Whether any lane has a DSP stage set (the JAX step's variant key)."""
         return bool(self.lp_kind.any() or self.mono_sel.any() or (self.norm_gain != 1.0).any())
 
+    def _rows(self, sh: _Shard, a: np.ndarray) -> torch.Tensor:
+        """A shard's rows of a host per-lane array, on its device: a step's
+        counted, traced copy (``_copy_in``)."""
+        return _copy_in(self.metrics, a[sh.lo:sh.hi], sh.device)
+
     def _mix(self, f: torch.Tensor, msel: torch.Tensor) -> torch.Tensor:
         """The per-lane mono toggle of a per-channel block [L, C, T]: toggled
         lanes carry their channel mean on every channel."""
@@ -462,13 +479,13 @@ class _Group:
         y, new filter x) before masking."""
         bl = (slice(None), None) if self.mono else (slice(None), None, None)
         if not self.mono:
-            f = self._mix(f, sh.rows(self.mono_sel))
-        f = f * sh.rows(self.norm_gain)[bl]
-        kind = sh.rows(self.lp_kind)
-        a = sh.rows(self.lp_a)
+            f = self._mix(f, self._rows(sh, self.mono_sel))
+        f = f * self._rows(sh, self.norm_gain)[bl]
+        kind = self._rows(sh, self.lp_kind)
+        a = self._rows(sh, self.lp_a)
         # per-sample-0 quantities broadcast one axis less than f
         wide = (lambda v: v) if self.mono else (lambda v: v[:, None])
-        started = sh.rows(self.filt_started)
+        started = self._rows(sh, self.filt_started)
         k1w, k2w, aw, stw = wide(kind == 1), wide(kind == 2), wide(a), wide(started)
         sy, sx = sh.filt_y, sh.filt_x
         x0 = f[..., 0]
@@ -519,10 +536,13 @@ class _Group:
     def decode_once(self):
         """Stage + dispatch one chunk. Returns (out[lanes, T] on the group's
         device, ready, underrun) or None when no lane could produce."""
-        st = self.io.stage()
+        with span("aukit.engine.stage", self.metrics):
+            st = self.io.stage()
         if st is None:
             return None
         staged, ready, consumed, underrun = st
+        self.metrics.bytes_staged += int(consumed.sum())
+        self.metrics.lanes_ready += int(ready.sum())
         return self.dispatch(staged, ready, consumed), ready, underrun
 
     def dispatch(self, staged, ready: np.ndarray, consumed: np.ndarray) -> torch.Tensor:
@@ -538,9 +558,11 @@ class _Group:
         ready_p = np.pad(ready, (0, self.pad)) if self.pad else ready
         outs = []
         for sh in self.shards:
-            dev = _to_device(padded_rows(staged, sh.lo, sh.hi), sh.device)
-            outs.append(self._step(sh, dev, sh.rows(ready_p),
-                                   None if gain is None else tuple(map(sh.rows, gain)), with_dsp))
+            dev = _copy_in(self.metrics, padded_rows(staged, sh.lo, sh.hi), sh.device)
+            ready_dev = self._rows(sh, ready_p)
+            gain_dev = None if gain is None else tuple(self._rows(sh, v) for v in gain)
+            with span("aukit.engine.launch", self.metrics):
+                outs.append(self._step(sh, dev, ready_dev, gain_dev, with_dsp))
         n = self.lanes
         if gain is not None:
             self.gain0[:n] = np.where(ready, self.gain1[:n], self.gain0[:n])
@@ -565,11 +587,11 @@ class _Group:
             staged, ready, _consumed, _underrun = st
             ready_p = np.pad(ready, (0, self.pad)) if self.pad else ready
             for i, sh in enumerate(self.shards):
-                ready_dev = sh.rows(ready_p)
+                ready_dev = _to_device(ready_p[sh.lo:sh.hi], sh.device)
                 f, new_state = self.decode(_to_device(padded_rows(staged, sh.lo, sh.hi),
                                                       sh.device), states[i])
                 if not self.mono:
-                    f = self._mix(f, sh.rows(self.mono_sel))
+                    f = self._mix(f, _to_device(self.mono_sel[sh.lo:sh.hi], sh.device))
                     m = f.abs().amax(dim=(-2, -1))
                 else:
                     m = f.abs().amax(dim=-1)
@@ -603,7 +625,7 @@ class _Group:
         elif smax == 0:
             window, self.fifo = _dev_pop(self.fifo, take, count)
         else:
-            skip_dev = torch.tensor(self.skip, device=self.device)
+            skip_dev = _copy_in(self.metrics, self.skip, self.device)
             window, self.fifo = _dev_pop_skip(self.fifo, skip_dev, take, count, smax)
         self.fill -= take
         # per-lane real-audio accounting: a span contributes to lane l iff
@@ -696,8 +718,10 @@ class BatchStreamEngine:
                 if s.chunk_bytes:
                     raise ValueError("chunk_bytes overrides require a homogeneous engine")
         self.interpolation = get_interpolation(interpolation)
+        self.metrics = BatchMetrics()
         self.groups = [_Group(s, np.array(slots), device, CONFIG.output_rate,
-                              mono=mono, mode=self.interpolation, mesh=mesh)
+                              mono=mono, mode=self.interpolation, mesh=mesh,
+                              metrics=self.metrics)
                        for s, slots in by_spec.items()]
         self._lane_map: list[tuple[int, int]] = [None] * self.lanes  # lane -> (gi, slot)
         for gi, g in enumerate(self.groups):
@@ -710,7 +734,6 @@ class BatchStreamEngine:
             row[g.slots] = base + np.arange(g.lanes)
             base += g.lanes
         self._inv_perm_dev = torch.tensor(row, device=device)
-        self.metrics = BatchMetrics()
 
     # -- ingestion ---------------------------------------------------------------
     def feed(self, lane: int, data: bytes | None):
@@ -719,8 +742,9 @@ class BatchStreamEngine:
         self.groups[gi].io.feed_lane(slot, data)
 
     def feed_many(self, datas: Sequence[bytes | None]):
-        for lane, d in enumerate(datas):
-            self.feed(lane, d)
+        with span("aukit.engine.feed", self.metrics):
+            for lane, d in enumerate(datas):
+                self.feed(lane, d)
 
     def feed_array(self, arr, eof: bool = True):
         """Bulk ingestion: ``uint8[L, B]`` rows in engine lane order, numpy or
@@ -730,11 +754,12 @@ class BatchStreamEngine:
             arr = np.asarray(arr)
         if arr.shape[0] != self.lanes:
             raise ValueError(f"feed_array rows {arr.shape[0]} != lanes {self.lanes}")
-        for g in self.groups:
-            rows = arr[g.slots] if len(self.groups) > 1 else arr
-            if isinstance(rows, np.ndarray):
-                rows = np.ascontiguousarray(rows)
-            g.io.feed_bulk(rows, eof)
+        with span("aukit.engine.feed", self.metrics):
+            for g in self.groups:
+                rows = arr[g.slots] if len(self.groups) > 1 else arr
+                if isinstance(rows, np.ndarray):
+                    rows = np.ascontiguousarray(rows)
+                g.io.feed_bulk(rows, eof)
 
     def set_volume(self, lane: int, volume: float, ramp: bool = False):
         """Per-lane playback volume: the smoothed float stream scales by
@@ -829,14 +854,13 @@ class BatchStreamEngine:
         next chunk overlaps device compute."""
         if self.done:
             return None
-        t0 = time.perf_counter()
-        r = self._step_mixed() if self.heterogeneous else self._step_single()
-        if r is None:
-            return None
-        chunk, mask, positions, nsamp = r
-        self.metrics.steps += 1
-        self.metrics.samples_decoded += int(mask.sum()) * nsamp
-        self.metrics.wall_seconds += time.perf_counter() - t0
+        with span("aukit.engine.step", self.metrics):
+            r = self._step_mixed() if self.heterogeneous else self._step_single()
+            if r is None:
+                return None
+            chunk, mask, positions, nsamp = r
+            self.metrics.steps += 1
+            self.metrics.samples_decoded += int(mask.sum()) * nsamp
         return chunk, mask, positions
 
     def _step_single(self):
@@ -863,30 +887,32 @@ class BatchStreamEngine:
                     break
                 out, ready, underrun = r
                 self.metrics.underruns += int(underrun)
-                g.fifo_push(out, ready)
+                with span("aukit.engine.fifo", self.metrics):
+                    g.fifo_push(out, ready)
                 progressed = True
         if not progressed and all(g.fill == 0 for g in self.groups):
             return None
         mask = np.zeros(self.lanes, bool)
         positions = np.zeros(self.lanes, np.float64)
         windows = []
-        for g in self.groups:
-            positions[g.slots] = g.samples_out / out_rate
-            need = out_rate + int(g.skip.max())
-            if g.fill >= need or (g.io.exhausted and g.fill > 0):
-                got, had_real = g.fifo_pop(out_rate)
-            else:
-                # starved (not exhausted): hold the partial FIFO — popping it
-                # now would zero-pad silence into the lane's timeline
-                got = g.silence(out_rate)
-                had_real = np.zeros(g.lanes, bool)
-            if not self.mono:
-                got = _dev_padch(got, self.out_channels)
-            windows.append(got)
-            mask[g.slots] = had_real
-        if not mask.any():
-            return None
-        return _dev_assemble(windows, self._inv_perm_dev), mask, positions, out_rate
+        with span("aukit.engine.fifo", self.metrics):
+            for g in self.groups:
+                positions[g.slots] = g.samples_out / out_rate
+                need = out_rate + int(g.skip.max())
+                if g.fill >= need or (g.io.exhausted and g.fill > 0):
+                    got, had_real = g.fifo_pop(out_rate)
+                else:
+                    # starved (not exhausted): hold the partial FIFO — popping
+                    # it now would zero-pad silence into the lane's timeline
+                    got = g.silence(out_rate)
+                    had_real = np.zeros(g.lanes, bool)
+                if not self.mono:
+                    got = _dev_padch(got, self.out_channels)
+                windows.append(got)
+                mask[g.slots] = had_real
+            if not mask.any():
+                return None
+            return _dev_assemble(windows, self._inv_perm_dev), mask, positions, out_rate
 
     # -- checkpoint / resume ------------------------------------------------------------
     def checkpoint(self, lane: int) -> dict:

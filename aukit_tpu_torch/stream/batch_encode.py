@@ -44,7 +44,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-import time
 from typing import Sequence
 
 import numpy as np
@@ -56,7 +55,8 @@ from ..kernels.dfpwm_cuda import dfpwm_encode_kernel
 from ..kernels.fma_cuda import fma_kernel
 from ..ops.pcmcode import denormalize_pcm
 from ..parallel.mesh import gather_rows, lane_layout, padded_rows
-from .batch import BatchMetrics, _GroupIO, _to_device, engine_device
+from ..utils.trace import span
+from .batch import BatchMetrics, _copy_in, _GroupIO, engine_device
 from .batch_codecs import NoState
 
 __all__ = ["BatchDfpwmEncoder", "BatchEncodeEngine", "EncodeSpec", "ENCODE_CODECS",
@@ -108,22 +108,26 @@ class BatchDfpwmEncoder:
         Masked lanes emit zeros and keep their state."""
         if self.done:
             return None
-        t0 = time.perf_counter()
-        st = self.io.stage()
-        if st is None:
-            return None
-        staged, ready, consumed, underrun = st
-        positions = self.samples_in / 48000.0
-        levels = _to_device(staged, self.device).view(torch.int8)  # signed 8-bit samples
-        ready_dev = torch.tensor(ready, device=self.device)
-        enc, new_state = dfpwm_encode_kernel(levels, self.state)
-        enc = torch.where(ready_dev[:, None], enc, 0)
-        self.state = new_state.where(ready_dev, self.state)
-        self.samples_in += np.where(ready, consumed, 0)
-        self.metrics.steps += 1
-        self.metrics.samples_decoded += int(ready.sum()) * self.chunk_samples
-        self.metrics.underruns += int(underrun)
-        self.metrics.wall_seconds += time.perf_counter() - t0
+        m = self.metrics
+        with span("aukit.engine.step", m):
+            with span("aukit.engine.stage", m):
+                st = self.io.stage()
+            if st is None:
+                return None
+            staged, ready, consumed, underrun = st
+            m.bytes_staged += int(consumed.sum())
+            m.lanes_ready += int(ready.sum())
+            positions = self.samples_in / 48000.0
+            levels = _copy_in(m, staged, self.device).view(torch.int8)  # signed 8-bit samples
+            ready_dev = _copy_in(m, ready, self.device)
+            with span("aukit.engine.launch", m):
+                enc, new_state = dfpwm_encode_kernel(levels, self.state)
+                enc = torch.where(ready_dev[:, None], enc, 0)
+                self.state = new_state.where(ready_dev, self.state)
+            self.samples_in += np.where(ready, consumed, 0)
+            m.steps += 1
+            m.samples_decoded += int(ready.sum()) * self.chunk_samples
+            m.underruns += int(underrun)
         return enc, ready, positions
 
 
@@ -186,16 +190,14 @@ class _EncShard:
         self.device, self.lo, self.hi = device, lo, hi
         self.state = DfpwmState.zeros(hi - lo, device) if stateful else NoState()
 
-    def rows(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a[self.lo:self.hi], device=self.device)
-
 
 class _EncGroup:
     """Encode lanes sharing one EncodeSpec: device step + host FIFO."""
 
     def __init__(self, spec: EncodeSpec, slots: np.ndarray, device: torch.device, chunk: int,
-                 mesh=None):
+                 mesh=None, metrics: BatchMetrics | None = None):
         self.spec = spec
+        self.metrics = BatchMetrics() if metrics is None else metrics  # the engine's
         self.slots = slots
         self.lanes = len(slots)
         self.chunk = chunk
@@ -296,14 +298,18 @@ class _EncGroup:
             gain = (self.gain0, gs)
         ready_p = np.pad(ready, (0, self.pad)) if self.pad else ready
         outs = []
+        m = self.metrics
         for sh in self.shards:
-            dev = _to_device(padded_rows(x, sh.lo, sh.hi), sh.device)
-            ready_dev = sh.rows(ready_p)
-            if kind == "win":
-                # torch.tensor copies the host rows before it returns, so the
-                # hand-over of gain0 below cannot race the transfer
-                dev = self._window_vals(dev, None if gain is None else tuple(map(sh.rows, gain)))
-            outs.append(self._encode_core(sh, dev, ready_dev))
+            dev = _copy_in(m, padded_rows(x, sh.lo, sh.hi), sh.device)
+            ready_dev = _copy_in(m, ready_p[sh.lo:sh.hi], sh.device)
+            # torch.tensor copies the host rows before it returns, so the
+            # hand-over of gain0 below cannot race the transfer
+            gain_dev = None if gain is None else tuple(_copy_in(m, v[sh.lo:sh.hi], sh.device)
+                                                       for v in gain)
+            with span("aukit.engine.launch", m):
+                if kind == "win":
+                    dev = self._window_vals(dev, gain_dev)
+                outs.append(self._encode_core(sh, dev, ready_dev))
         if gain is not None:
             n = self.lanes
             self.gain0[:n] = np.where(ready, self.gain1[:n], self.gain0[:n])
@@ -391,7 +397,9 @@ class BatchEncodeEngine:
         by_spec: dict[EncodeSpec, list[int]] = {}
         for i, s in enumerate(specs):
             by_spec.setdefault(s, []).append(i)
-        self.groups = [_EncGroup(s, np.array(slots), self.device, chunk_samples, mesh)
+        self.metrics = BatchMetrics()
+        self.groups = [_EncGroup(s, np.array(slots), self.device, chunk_samples, mesh,
+                                 self.metrics)
                        for s, slots in by_spec.items()]
         self._lane_map: list[tuple[int, int]] = [None] * self.lanes
         for gi, g in enumerate(self.groups):
@@ -404,7 +412,6 @@ class BatchEncodeEngine:
             base += g.lanes
         self._inv_perm = torch.tensor(row, device=self.device)
         self._slots_dev = [torch.tensor(g.slots, device=self.device) for g in self.groups]
-        self.metrics = BatchMetrics()
 
     # -- ingestion ------------------------------------------------------------
     def feed(self, lane: int, samples):
@@ -456,39 +463,39 @@ class BatchEncodeEngine:
         Returns (bytes uint8[L, Bmax] on the device, nbytes int64[L], mask,
         positions). Columns beyond a lane's nbytes are zero padding (groups
         differ in output width)."""
-        t0 = time.perf_counter()
-        mask = np.asarray(mask, bool)
-        if not isinstance(windows, torch.Tensor):
-            windows = torch.as_tensor(np.asarray(windows))
-        if windows.dtype != torch.int8:
-            raise ValueError(f"windows must be int8, got {windows.dtype}")
-        if windows.dim() == 2:
-            windows = windows[:, None, :]
-        windows = windows.to(self.device)
-        T = windows.shape[-1]
-        outs = []
-        nbytes = np.zeros(self.lanes, np.int64)
-        positions = np.zeros(self.lanes, np.float64)
-        for g, slots_dev in zip(self.groups, self._slots_dev):
-            if windows.shape[1] != g.spec.channels:
-                raise ValueError(
-                    f"window channels {windows.shape[1]} != lane spec "
-                    f"channels {g.spec.channels}")
-            rows = windows.index_select(0, slots_dev) if len(self.groups) > 1 else windows
-            ready = mask[g.slots]
-            out = g.dispatch(rows, ready, "win")
-            outs.append(out)
-            lv = T * g.spec.channels
-            width = lv // 8 if g.spec.codec == "dfpwm" else out.shape[-1]
-            nbytes[g.slots] = np.where(ready, width, 0)
-            # positions report the chunk-start second (the decode engines'
-            # and step()'s convention), so decode and encode positions align
-            positions[g.slots] = g.samples_in / g.spec.sample_rate
-            g.samples_in += np.where(ready, T, 0)
-        self.metrics.steps += 1
-        self.metrics.samples_decoded += int(mask.sum()) * T
-        self.metrics.wall_seconds += time.perf_counter() - t0
-        return self._assemble(outs), nbytes, mask, positions
+        with span("aukit.engine.step", self.metrics):
+            mask = np.asarray(mask, bool)
+            if not isinstance(windows, torch.Tensor):
+                windows = torch.as_tensor(np.asarray(windows))
+            if windows.dtype != torch.int8:
+                raise ValueError(f"windows must be int8, got {windows.dtype}")
+            if windows.dim() == 2:
+                windows = windows[:, None, :]
+            windows = windows.to(self.device)
+            T = windows.shape[-1]
+            outs = []
+            nbytes = np.zeros(self.lanes, np.int64)
+            positions = np.zeros(self.lanes, np.float64)
+            for g, slots_dev in zip(self.groups, self._slots_dev):
+                if windows.shape[1] != g.spec.channels:
+                    raise ValueError(
+                        f"window channels {windows.shape[1]} != lane spec "
+                        f"channels {g.spec.channels}")
+                rows = windows.index_select(0, slots_dev) if len(self.groups) > 1 else windows
+                ready = mask[g.slots]
+                self.metrics.lanes_ready += int(ready.sum())
+                out = g.dispatch(rows, ready, "win")
+                outs.append(out)
+                lv = T * g.spec.channels
+                width = lv // 8 if g.spec.codec == "dfpwm" else out.shape[-1]
+                nbytes[g.slots] = np.where(ready, width, 0)
+                # positions report the chunk-start second (the decode engines'
+                # and step()'s convention), so decode and encode positions align
+                positions[g.slots] = g.samples_in / g.spec.sample_rate
+                g.samples_in += np.where(ready, T, 0)
+            self.metrics.steps += 1
+            self.metrics.samples_decoded += int(mask.sum()) * T
+            return self._assemble(outs), nbytes, mask, positions
 
     # -- host-fed step ----------------------------------------------------------
     def step(self):
@@ -497,33 +504,36 @@ class BatchEncodeEngine:
         int64[L], mask, positions)."""
         if self.done:
             return None
-        t0 = time.perf_counter()
-        outs, masks = [], np.zeros(self.lanes, bool)
-        nbytes = np.zeros(self.lanes, np.int64)
-        positions = np.zeros(self.lanes, np.float64)
-        any_ready = False
-        for g in self.groups:
-            positions[g.slots] = g.samples_in / g.spec.sample_rate
-            st = g.stage()
-            if st is None:
-                outs.append(torch.zeros((g.lanes, g.out_bytes), dtype=torch.uint8,
-                                        device=self.device))
-                continue
-            staged, ready, consumed, underrun = st
-            any_ready = True
-            self.metrics.underruns += int(underrun)
-            outs.append(g.dispatch(staged, ready, "vals"))
-            masks[g.slots] = ready
-            lv = consumed * g.spec.channels
-            nbytes[g.slots] = (lv // 8 if g.spec.codec == "dfpwm"
-                               else lv * g.bytes_per_frame // g.spec.channels)
-            g.samples_in += consumed
-        if not any_ready:
-            return None
-        self.metrics.steps += 1
-        self.metrics.samples_decoded += int(masks.sum()) * self.chunk_samples
-        self.metrics.wall_seconds += time.perf_counter() - t0
-        return self._assemble(outs), nbytes, masks, positions
+        with span("aukit.engine.step", self.metrics):
+            outs, masks = [], np.zeros(self.lanes, bool)
+            nbytes = np.zeros(self.lanes, np.int64)
+            positions = np.zeros(self.lanes, np.float64)
+            any_ready = False
+            for g in self.groups:
+                positions[g.slots] = g.samples_in / g.spec.sample_rate
+                with span("aukit.engine.stage", self.metrics):
+                    st = g.stage()
+                if st is None:
+                    outs.append(torch.zeros((g.lanes, g.out_bytes), dtype=torch.uint8,
+                                            device=self.device))
+                    continue
+                staged, ready, consumed, underrun = st
+                any_ready = True
+                self.metrics.underruns += int(underrun)
+                self.metrics.bytes_staged += (int(consumed.sum()) * g.spec.channels
+                                              * staged.itemsize)
+                self.metrics.lanes_ready += int(ready.sum())
+                outs.append(g.dispatch(staged, ready, "vals"))
+                masks[g.slots] = ready
+                lv = consumed * g.spec.channels
+                nbytes[g.slots] = (lv // 8 if g.spec.codec == "dfpwm"
+                                   else lv * g.bytes_per_frame // g.spec.channels)
+                g.samples_in += consumed
+            if not any_ready:
+                return None
+            self.metrics.steps += 1
+            self.metrics.samples_decoded += int(masks.sum()) * self.chunk_samples
+            return self._assemble(outs), nbytes, masks, positions
 
     # -- checkpoint / resume ------------------------------------------------------
     def checkpoint(self, lane: int) -> dict:

@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import collections
 import struct
-import time
 
 import numpy as np
 import torch
@@ -67,6 +66,7 @@ from ..kernels.iir_cuda import iir_zero_kernel
 from ..ops.resample import block_interp_device
 from ..parallel.mesh import Mesh, device_mesh, sharded_rows
 from ..parallel.pipeline import fir_alpha
+from ..utils.trace import span
 from .batch import BatchMetrics, engine_device
 from .engine import block_resample_plan, iir_lowpass_scan, lua_block_resample
 
@@ -411,6 +411,8 @@ class FlacFleet:
                     strict=False, incremental=True)
             ln.dirty = False
             if len(fm):
+                self.metrics.frames_parsed += len(fm)
+                self.metrics.bytes_parsed += end - ln.pos
                 del ln.buf[:end]
                 ln.consumed += end
                 ln.pos = 0
@@ -544,23 +546,34 @@ class FlacFleet:
                 else:
                     groups.setdefault(key, []).append(p)
             for group in groups.values():
-                dev_out = self._device_full_step(group)
+                with span("aukit.flac.restore", self.metrics):
+                    dev_out = self._device_full_step(group)
                 if dev_out is None:
                     residual.extend(group)
                     continue
-                for li, samples in dev_out.items():
-                    self._push_lane(self._lanes[li], samples)
+                with span("aukit.flac.dsp", self.metrics):
+                    for li, samples in dev_out.items():
+                        self._push_lane(self._lanes[li], samples)
             if not residual:
                 return
             parsed = residual
-        sub_all = {k: np.concatenate([p[2][k] for p in parsed])
-                   for k in ("order", "shift", "wasted", "block")}
-        coefs_all = np.concatenate([p[3] for p in parsed])
-        values_all = np.concatenate([p[4] for p in parsed])
-        depth_max = max(self._lanes[p[0]].depth for p in parsed)
-        restored = flac_codec.restore_flat(
-            sub_all, coefs_all, values_all, depth_max, device=self.device_restore,
-            mesh=self.mesh if depth_max <= flac_codec.DEVICE_MAX_DEPTH else None, on=self.device)
+        with span("aukit.flac.restore", self.metrics):
+            sub_all = {k: np.concatenate([p[2][k] for p in parsed])
+                       for k in ("order", "shift", "wasted", "block")}
+            coefs_all = np.concatenate([p[3] for p in parsed])
+            values_all = np.concatenate([p[4] for p in parsed])
+            depth_max = max(self._lanes[p[0]].depth for p in parsed)
+            restored = flac_codec.restore_flat(
+                sub_all, coefs_all, values_all, depth_max, device=self.device_restore,
+                mesh=self.mesh if depth_max <= flac_codec.DEVICE_MAX_DEPTH else None,
+                on=self.device)
+        with span("aukit.flac.dsp", self.metrics):
+            self._host_dsp(parsed, restored)
+
+    def _host_dsp(self, parsed, restored: np.ndarray):
+        """Per lane: decorrelate the restored subframes and normalise, then
+        resample, lowpass, gain and scale in batched rounds; the scaled
+        output lands in the lane FIFOs."""
         voffs = np.concatenate(
             [[0], np.cumsum([int(p[2]["block"].sum()) for p in parsed])])
 
@@ -718,25 +731,25 @@ class FlacFleet:
         never zero-padded into a live lane's timeline)."""
         if self.done:
             return None
-        t0 = time.perf_counter()
-        parsed = self._parse_step()
-        if parsed:
-            self._decode_step(parsed)
-        shape = ((self.lanes, self.out_rate) if self.mono
-                 else (self.lanes, self.out_ch, self.out_rate))
-        window = np.zeros(shape, np.float32)
-        mask = np.zeros(self.lanes, bool)
-        positions = np.zeros(self.lanes, np.float64)
-        emitted = 0
-        for li, ln in enumerate(self._lanes):
-            positions[li] = ln.samples_out / self.out_rate
-            if ln.fill >= self.out_rate or (ln.ended and ln.fill > 0):
-                take = self._pop(ln, window[li])
-                ln.samples_out += take
-                mask[li] = True
-                emitted += take
-        self.metrics.steps += 1
-        self.metrics.wall_seconds += time.perf_counter() - t0
+        with span("aukit.flac.step", self.metrics):
+            with span("aukit.flac.parse", self.metrics):
+                parsed = self._parse_step()
+            if parsed:
+                self._decode_step(parsed)
+            shape = ((self.lanes, self.out_rate) if self.mono
+                     else (self.lanes, self.out_ch, self.out_rate))
+            window = np.zeros(shape, np.float32)
+            mask = np.zeros(self.lanes, bool)
+            positions = np.zeros(self.lanes, np.float64)
+            emitted = 0
+            for li, ln in enumerate(self._lanes):
+                positions[li] = ln.samples_out / self.out_rate
+                if ln.fill >= self.out_rate or (ln.ended and ln.fill > 0):
+                    take = self._pop(ln, window[li])
+                    ln.samples_out += take
+                    mask[li] = True
+                    emitted += take
+            self.metrics.steps += 1
         if not mask.any():
             self.metrics.underruns += int(not self.done)
             return None

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG
+from ..utils.trace import span
 from .batch import BatchMetrics, BatchStreamEngine, _dev_padch, engine_device
 from .batch_codecs import (LaneSpec, lane_spec_for_aiff, lane_spec_for_au, lane_spec_for_qoa,
                            lane_spec_for_wav)
@@ -213,6 +214,7 @@ class Fleet:
             self.engine = BatchStreamEngine(specs, mesh, use_pallas=use_pallas, mono=mono,
                                             windowed=True, interpolation=interpolation,
                                             device=device)
+        self._hop = BatchMetrics()  # the merge's own copies to the device
         self.flac = None
         if n_flac:
             self.flac = FlacFleet(n_flac, device_restore=device_restore, mesh=mesh,
@@ -402,14 +404,17 @@ class Fleet:
 
     @property
     def metrics(self) -> BatchMetrics:
+        """Both engines' counters added up (``steps``: the larger count),
+        with the merge's copies of the FLAC windows and the station mask in
+        ``htod_copies`` and ``htod_bytes``."""
         m = BatchMetrics()
         for sub in (self.engine, self.flac):
             if sub is None:
                 continue
-            m.steps = max(m.steps, sub.metrics.steps)
-            m.samples_decoded += sub.metrics.samples_decoded
-            m.wall_seconds += sub.metrics.wall_seconds
-            m.underruns += sub.metrics.underruns
+            for k, v in vars(sub.metrics).items():
+                setattr(m, k, max(m.steps, v) if k == "steps" else getattr(m, k) + v)
+        m.htod_copies += self._hop.htod_copies
+        m.htod_bytes += self._hop.htod_bytes
         return m
 
     # -- the batched step ---------------------------------------------------------
@@ -417,6 +422,12 @@ class Fleet:
         """One batched step across every station. Returns (windows int8[N, T]
         or int8[N, C, T] on the fleet's device, mask bool[N], positions
         f64[N]) or None when no station can produce."""
+        with span("aukit.fleet.step", self._hop):
+            r = self._step()
+        self._hop.steps += 1
+        return r
+
+    def _step(self):
         er = self.engine.step() if self.engine is not None else None
         fr = self.flac.step() if self.flac is not None else None
         if er is None and fr is None:
@@ -444,13 +455,21 @@ class Fleet:
             ce = self.engine.out_channels if self.engine is not None else 1
             ew = torch.zeros((self._n_engine, T) if self.mono else (self._n_engine, ce, T),
                              dtype=torch.int8, device=dev)
-        if fr is not None:
-            fw = torch.as_tensor(fr[0]).to(dev)  # the FLAC windows' one hop to the device
-        else:
-            fw = torch.zeros((self._n_flac, T) if self.mono else (self._n_flac, self.out_ch, T),
-                             dtype=torch.float32, device=dev)
-        windows = _dev_merge(ew, fw, self._mdf_l, self._mdf_r, self._perm,
-                             torch.tensor(mask, device=dev), 0 if self.mono else self.out_ch)
+        hop = self._hop
+        with span("aukit.fleet.htod", hop):
+            if fr is not None:
+                fw = torch.as_tensor(fr[0]).to(dev)  # the FLAC windows' one hop to the device
+                hop.htod_copies += 1
+                hop.htod_bytes += fr[0].nbytes
+            else:
+                fw = torch.zeros((self._n_flac, T) if self.mono
+                                 else (self._n_flac, self.out_ch, T),
+                                 dtype=torch.float32, device=dev)
+            mask_dev = torch.tensor(mask, device=dev)
+            hop.htod_copies += 1
+            hop.htod_bytes += mask.nbytes
+        windows = _dev_merge(ew, fw, self._mdf_l, self._mdf_r, self._perm, mask_dev,
+                             0 if self.mono else self.out_ch)
         return windows, mask, positions
 
     # -- station lifecycle + seek ------------------------------------------------
