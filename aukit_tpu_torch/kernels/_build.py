@@ -11,7 +11,9 @@ CPU-only environment that runs the tests has no ``nvcc``.
 ``--fmad=false`` is part of the contract: the float code is compared bit for
 bit with the JAX engine's, which fuses exactly the multiply-adds the kernels
 write as ``__fmaf_rn``; any other ``a*b+c`` that nvcc contracted would flip
-int8 outputs. Never add ``--use_fast_math``.
+int8 outputs. The float64 FLAC DSP (``csrc/flac_dsp.cu``) is compared bit for
+bit with the numpy host route, which fuses nothing. Never add
+``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ _SIGNATURES = {
     "aukit_lpc_restore": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
     "aukit_lpc_restore_wide": (_P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
     "aukit_iir_zero": (_P, _P, ctypes.c_int, _LL, ctypes.c_float, ctypes.c_float, _P),
+    "aukit_flac_dsp_f64": (_P, _P, _P, _P, _P, *(ctypes.c_int,) * 10, ctypes.c_double, _P),
 }
 
 

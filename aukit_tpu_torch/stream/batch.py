@@ -79,6 +79,8 @@ class BatchMetrics:
     lanes_ready: int = 0  # lane chunks decoded from real bytes
     frames_parsed: int = 0  # FlacFleet: frames committed by the parse
     bytes_parsed: int = 0  # FlacFleet: the committed frames' bytes
+    dsp_lanes_device: int = 0  # FlacFleet host route: lanes whose DSP ran in the f64 kernel
+    dsp_lanes_host: int = 0  # FlacFleet host route: lanes whose DSP ran in numpy
 
 
 # -- device FIFO helpers ------------------------------------------------------------

@@ -18,10 +18,18 @@ Three routes, as in the JAX package:
 
 - **host** (``device_dsp=False``, the default): the native/numpy int64
   restore and float64 DSP, each lane bit-equal to the JAX fleet's host route
-  and so to a solo ``stream.flac`` run. It runs no kernel, unless
-  ``CONFIG.flac_device_restore_min`` sends a step's restore to kernel (g)
-  (``device_restore=None`` on a CUDA ``device``), which gives the same
-  samples.
+  and so to a solo ``stream.flac`` run. On a card (a CUDA ``device`` with a
+  card present) the float64 DSP of every lane whose frames this step are
+  uniform (``_lane_geometry``), with "none" or "linear" interpolation and
+  blocks that fit the kernel's shared memory, runs in the kernel
+  ``aukit_flac_dsp_f64`` (``kernels/flac_dsp_cuda.py``), one launch a
+  geometry group, bit-equal to the numpy route; the other lanes of the
+  step (a short final frame, a change of block size, cubic or sinc, low
+  rates whose blocks do not fit) take the numpy route. The restore stays on
+  the host unless ``CONFIG.flac_device_restore_min`` sends a step's restore
+  to kernel (g) (``device_restore=None`` on a CUDA ``device``), which gives
+  the same samples. ``metrics.dsp_lanes_device`` and ``dsp_lanes_host``
+  count the lanes each DSP route took.
 - **staged device DSP** (``device_restore=False, device_dsp=True``): host
   restore, then the resample and the lowpass on the torch device, the
   lowpass through kernel (h) ``iir_zero_kernel``.
@@ -61,6 +69,8 @@ import torch
 from ..codecs import flac as flac_codec
 from ..config import CONFIG, get_interpolation
 from ..kernels.flac_cuda import lpc_restore_kernel, order_bucket
+from ..kernels.flac_dsp_cuda import LANE_FIELDS, DspGeometry, flac_dsp_kernel
+from ..kernels.flac_dsp_cuda import geometry as flac_dsp_geometry
 from ..kernels.fma_cuda import fma_kernel as fma
 from ..kernels.iir_cuda import iir_zero_kernel
 from ..ops.resample import block_interp_device
@@ -75,6 +85,8 @@ __all__ = ["FlacFleet"]
 # undecodable bytes a lane may buffer before it is poisoned: the solo
 # stream.flac's bound (aukit_tpu/stream/__init__.py _STALL_LIMIT)
 _PULL_STALL_LIMIT = 8 << 20
+# the largest host buffer of a step that the f64 DSP kernel's route pins
+_PINNED_MAX = 1 << 30
 
 
 def _fit_channels(arr: np.ndarray, cap: int) -> np.ndarray:
@@ -227,13 +239,16 @@ class FlacFleet:
         block lowpass rows shard over it (see the module docstring); the
         fleet's device routes run on its first device.
     device_dsp : run the DSP (and, unless ``device_restore=False``, the
-        restore) on ``device``; see the module docstring for the routes.
+        restore) on ``device`` in float32; see the module docstring for the
+        routes. Without it, the float64 DSP of the host route runs on the
+        card where ``device`` is one, bit-equal to the numpy route.
     mono : True mixes windows to one channel; False keeps ``channels``.
     channels : the fleet's channel capacity with ``mono=False``.
     interpolation : resample mode, ``CONFIG.default_interpolation`` when None.
-    device : torch device of the device routes. ``"cuda"`` without a card
-        raises here when a device route is asked for; with a mesh, the type
-        (or the device) of its first device.
+    device : torch device of the device routes and of the host route's
+        float64 DSP kernel. ``"cuda"`` without a card raises here when a
+        device route is asked for (the host route then runs its DSP in
+        numpy); with a mesh, the type (or the device) of its first device.
 
     Each lane carries its own format (rate/channels/depth parsed from its own
     ``fLaC`` header), so a fleet may mix files freely; malformed lanes are
@@ -269,6 +284,10 @@ class FlacFleet:
         self.out_rate = CONFIG.output_rate
         self._lanes = [_Lane() for _ in range(lanes)]
         self.metrics = BatchMetrics()
+        # the host blocks of windows that the kernel route's lane FIFOs view,
+        # each (block, the lanes pushed views of it): this step's, and the
+        # last step's until this step's pops are done (``_release_windows``)
+        self._windows_new = self._windows_held = None
 
     # -- ingestion -----------------------------------------------------------
     def feed(self, lane: int, data: bytes | None):
@@ -561,31 +580,146 @@ class FlacFleet:
             sub_all = {k: np.concatenate([p[2][k] for p in parsed])
                        for k in ("order", "shift", "wasted", "block")}
             coefs_all = np.concatenate([p[3] for p in parsed])
-            values_all = np.concatenate([p[4] for p in parsed])
+            card_dsp = not self.device_dsp and self._card_dsp()
+            values_all, joined = self._joined_values([p[4] for p in parsed], card_dsp)
             depth_max = max(self._lanes[p[0]].depth for p in parsed)
             restored = flac_codec.restore_flat(
                 sub_all, coefs_all, values_all, depth_max, device=self.device_restore,
                 mesh=self.mesh if depth_max <= flac_codec.DEVICE_MAX_DEPTH else None,
                 on=self.device)
         with span("aukit.flac.dsp", self.metrics):
-            self._host_dsp(parsed, restored)
+            voffs = np.concatenate(
+                [[0], np.cumsum([int(p[2]["block"].sum()) for p in parsed])])
+            rest = range(len(parsed))
+            if card_dsp:  # the restore ran in place on the pinned join, or made a new array
+                if joined is None or restored.ctypes.data != joined.data_ptr():
+                    joined = torch.from_numpy(np.ascontiguousarray(restored, np.int64))
+                rest = self._kernel_dsp(parsed, joined, voffs)
+            if not self.device_dsp:
+                self.metrics.dsp_lanes_device += len(parsed) - len(rest)
+                self.metrics.dsp_lanes_host += len(rest)
+            if len(rest):
+                self._host_dsp([parsed[k] for k in rest],
+                               [restored[voffs[k]:voffs[k + 1]] for k in rest])
 
-    def _host_dsp(self, parsed, restored: np.ndarray):
-        """Per lane: decorrelate the restored subframes and normalise, then
-        resample, lowpass, gain and scale in batched rounds; the scaled
-        output lands in the lane FIFOs."""
-        voffs = np.concatenate(
-            [[0], np.cumsum([int(p[2]["block"].sum()) for p in parsed])])
+    def _joined_values(self, parts, card_dsp: bool):
+        """The step's parsed values joined into one int64 array, and the
+        pinned host tensor that holds it or None. Pinned where the DSP may
+        run on a card and the join is at most ``_PINNED_MAX`` bytes: the
+        native restore works in place on it, and its copy to the card is then
+        a direct one. The caching host allocator hands the block to a later
+        step once this one has dropped it."""
+        n = sum(len(v) for v in parts)
+        if not card_dsp or self.device.type != "cuda" or n * 8 > _PINNED_MAX:
+            return np.concatenate(parts), None
+        pinned = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        np.concatenate(parts, out=pinned.numpy())
+        return pinned.numpy(), pinned
 
+    def _card_dsp(self) -> bool:
+        """Whether the host route's float64 DSP may run in the kernel
+        ``aukit_flac_dsp_f64``: the fleet's device is a card and a card is
+        present."""
+        return self.device.type == "cuda" and torch.cuda.is_available()
+
+    def _kernel_geometry(self, p) -> DspGeometry | None:
+        """The kernel's geometry for one lane's frames of this step, or None
+        when the lane takes the numpy route: frames that are not uniform
+        (``_lane_geometry``), or frames the kernel does not take
+        (``flac_dsp_cuda.geometry``: cubic or sinc, a block too large for
+        its shared memory, ...)."""
+        key = self._lane_geometry(p)
+        if key is None:
+            return None
+        rate, C, depth, n, asgn = key
+        return flac_dsp_geometry(rate, C, depth, n, asgn, self.out_rate, self.mode,
+                                 self._out_mode(C), self._lanes[p[0]].alpha)
+
+    def _kernel_dsp(self, parsed, restored: torch.Tensor, voffs: np.ndarray) -> list[int]:
+        """The host route's DSP on the card for every lane the kernel takes:
+        one copy of the step's restored samples (int64, on the host) to
+        ``device``, one launch a geometry group, one copy of the windows
+        back. Updates those lanes' states, ramps and FIFOs; returns the
+        indices into ``parsed`` of the lanes left to the numpy route."""
+        groups: dict[DspGeometry, list[int]] = {}
+        rest = []
+        for k, p in enumerate(parsed):
+            geo = self._kernel_geometry(p)
+            if geo is None:
+                rest.append(k)
+            else:
+                groups.setdefault(geo, []).append(k)
+        if not groups:
+            return rest
+        dev = self.device
+        src = restored.to(dev, non_blocking=True)
+        self.metrics.htod_copies += 1
+        self.metrics.htod_bytes += restored.numel() * 8
+        plans, at = [], 0
+        for geo, ks in groups.items():
+            width = geo.channels if geo.out_mode == "multi" else 1
+            lanes = np.empty((len(ks), LANE_FIELDS), np.int64)
+            fin = np.empty((len(ks), 2 + geo.channels), np.float64)
+            for j, k in enumerate(ks):
+                ln = self._lanes[parsed[k][0]]
+                m = len(parsed[k][1])
+                lanes[j] = (voffs[k], m, at, ln.ramp_pos, ln.ramp_len)
+                fin[j, 0], fin[j, 1], fin[j, 2:] = ln.gain0, ln.gain, ln.ls
+                at += width * m * geo.out_len
+            plans.append((geo, width, ks, lanes, fin))
+        out = torch.empty(at, dtype=torch.float32, device=dev)
+        states = [flac_dsp_kernel(src, torch.from_numpy(lanes), torch.from_numpy(fin), out, geo)
+                  for geo, _w, _ks, lanes, fin in plans]
+        # a fresh array a step, for the FIFOs keep views of it until the next
+        # step's pops (_release_windows): pinned up to _PINNED_MAX bytes,
+        # where the caching host allocator recycles a block once no view of
+        # it is left, so that the copy writes no new pages
+        if dev.type == "cuda" and at * 4 <= _PINNED_MAX:
+            host = torch.empty(at, dtype=torch.float32, pin_memory=True)
+            host = host.copy_(out).numpy()
+        else:
+            host = out.cpu().numpy()
+        for (geo, width, ks, lanes, _fin), st in zip(plans, states):
+            st = st.cpu().numpy()
+            C = geo.channels
+            for j, k in enumerate(ks):
+                ln = self._lanes[parsed[k][0]]
+                T = int(lanes[j, 1]) * geo.out_len
+                off = int(lanes[j, 2])
+                ln.ls = st[j, :C].copy()
+                ln.last = st[j, C:].reshape(C, 2).copy()
+                self._advance_ramp(ln, T)
+                samples = host[off: off + width * T]
+                self._push_lane(ln, samples.reshape(C, T) if width > 1 else samples)
+        self._windows_new = (host, [parsed[k][0] for _g, _w, ks, _l, _f in plans for k in ks])
+        return rest
+
+    def _release_windows(self):
+        """After a step's pops: copy out of the lane FIFOs whatever still
+        views the last step's block of windows, and hold this step's. So a
+        block (pinned on a card) outlives its step by one step at most, and
+        a lane with a backlog keeps a copy of its remainder, not the block:
+        the kernel route holds two steps' windows on the host at most."""
+        if self._windows_held is not None:
+            block, lis = self._windows_held
+            for li in lis:
+                fifo = self._lanes[li].fifo
+                for k, a in enumerate(fifo):
+                    if a.base is block:
+                        fifo[k] = a.copy()
+        self._windows_held, self._windows_new = self._windows_new, None
+
+    def _host_dsp(self, parsed, segments):
+        """Per lane: decorrelate its restored subframes (``segments``, in
+        ``parsed``'s order) and normalise, then resample, lowpass, gain and
+        scale in batched rounds; the scaled output lands in the lane FIFOs."""
         # per lane: decorrelate + normalize, then per-block resample extents
         # (history = previous block's tail — decoded data, no sequential dep)
         jobs: dict[tuple, list] = {}  # (n, rate, C) -> [(li, round, ext), ...]
         rounds: dict[int, list] = {}  # lane -> [None per block round]
-        for k, (li, fm, sub, _c, _v) in enumerate(parsed):
+        for (li, fm, sub, _c, _v), seg in zip(parsed, segments):
             ln = self._lanes[li]
-            raw = flac_codec.decorrelate_frames(
-                fm, sub["block"], restored[voffs[k]:voffs[k + 1]],
-                ln.channels, ln.depth)
+            raw = flac_codec.decorrelate_frames(fm, sub["block"], seg, ln.channels, ln.depth)
             dec = raw.astype(np.float64) / (1 << ln.depth)
             sizes = fm[:, 0].astype(np.int64)
             rounds[li] = [None] * len(sizes)
@@ -749,6 +883,7 @@ class FlacFleet:
                     ln.samples_out += take
                     mask[li] = True
                     emitted += take
+            self._release_windows()
             self.metrics.steps += 1
         if not mask.any():
             self.metrics.underruns += int(not self.done)

@@ -48,7 +48,8 @@ The spans, by name (the stretch each marks):
  - ``aukit.flac.restore``: the fleet-wide LPC restore (on the device-resident
    route, each geometry group's whole device step);
  - ``aukit.flac.dsp``: decorrelation, resample, lowpass, gain, scale and the
-   lane FIFOs' push;
+   lane FIFOs' push (on a card the host route's copies to and from it and
+   the f64 DSP kernel);
  - ``aukit.fleet.step``: ``Fleet.step``, whose own time is the station
    bookkeeping and the windows' merge;
  - ``aukit.fleet.htod``: the FLAC windows' and the station mask's copies to
@@ -59,7 +60,10 @@ The spans, by name (the stretch each marks):
 moved into staged matrices), ``htod_copies`` and ``htod_bytes`` (copies of
 host arrays onto the engine's device), ``lanes_ready`` (lane chunks decoded
 from real bytes), and on ``FlacFleet`` ``frames_parsed`` and
-``bytes_parsed`` (frames and frame bytes committed by the parse).
+``bytes_parsed`` (frames and frame bytes committed by the parse) and
+``dsp_lanes_device`` and ``dsp_lanes_host`` (the host route's lanes whose
+float64 DSP ran in the kernel ``aukit_flac_dsp_f64`` or in numpy, added
+inside ``aukit.flac.dsp``).
 ``Fleet.metrics`` adds up both engines' and the FLAC windows' copies.
 """
 

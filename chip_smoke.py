@@ -10,7 +10,8 @@ PyTorch versions on the card (also at the main paths' own shapes and bytes),
 checks the CUDA engines and the Fleet facade against the CPU ones, drives
 the six main paths at full width (the batched DFPWM -> 48 kHz int8 engine, a
 32768-lane block-codec fleet of IMA, MS ADPCM, QOA, PCM16 and µ-law lanes, a
-2048-lane drip-fed FLAC fleet, a 24576-lane device-to-device transcode of
+2048-lane drip-fed FLAC fleet, the FLAC host route's float64 DSP kernel at
+the radio cell's 1024 lanes against the numpy route, a 24576-lane device-to-device transcode of
 mono and stereo PCM16 into DFPWM and PCM16, the auplay DSP chain on 16384
 PCM16 lanes, a 3072-station Fleet of FLAC, DFPWM and IMA-in-WAV, auplay's
 whole-file preload chain on 3-minute tracks in every container and a
@@ -78,6 +79,7 @@ from aukit_tpu_torch.kernels import _build
 from aukit_tpu_torch.kernels import adpcm_cuda as ka
 from aukit_tpu_torch.kernels import dfpwm_cuda as kc
 from aukit_tpu_torch.kernels import flac_cuda as kg
+from aukit_tpu_torch.kernels import flac_dsp_cuda as kd
 from aukit_tpu_torch.kernels import fma_cuda as kf
 from aukit_tpu_torch.kernels import iir_cuda as kh
 from aukit_tpu_torch.kernels import qoa_cuda as kq
@@ -1834,6 +1836,158 @@ def phase_flac_times() -> dict:
     return times
 
 
+# -- the FLAC host route's float64 DSP on the card --------------------------------------------
+
+FLAC_DSP_LANES = 1024  # the radio cell's FLAC stations (portbench radio_fleet: a third of 3072)
+FLAC_DSP_FRAMES = 12  # frames a lane commits a step (the radio's ticks: 11,819 over 1024 lanes)
+FLAC_DSP_STEPS = 3  # lane 0 takes steps 0 and 1's bytes at step 0, step 2's at step 1
+FLAC_DSP_VOLUMES = ((0, 0.5, False), (1, 0.3, True), (5, 1.6, True))  # (lane, volume, ramp)
+# float64 operations a sample of the 48 kHz identity lanes, counted from
+# csrc/flac_dsp.cu: the decode's conversion and its multiply by 2^-depth
+# (2), the alpha multiply (1), eight doubling passes of a multiply and an
+# add (16), the gain and the scale (2), the clip's two compares and the
+# cast (3). The H100 runs float64 at half its float32 rate, so they count
+# twice against OPS_PER_S.
+FLAC_DSP_OPS = 24
+
+
+@phase
+def phase_flac_f64_dsp() -> tuple[dict, float, dict]:
+    """The FLAC host route's float64 DSP on the card, kernel
+    ``aukit_flac_dsp_f64``: (1) the kernel against its plain version on the
+    CPU on every case of ``tests/torch_kernel_cases.py`` ``flac_dsp_cases``,
+    bit for bit; (2) the default route of ``FlacFleet(device="cuda")`` at
+    the radio cell's width, FLAC_DSP_LANES lanes of 48 kHz mono LPC-8
+    frames of 4096 samples (bench.py config 7's, as ``flac -5`` codes them),
+    FLAC_DSP_FRAMES frames a lane a step (lane 0 two steps' frames at once,
+    so that its backlog outlives the next step's pop), a constant gain and
+    two ramps: every window, mask and position of FLAC_DSP_STEPS steps and
+    every lane's checkpoint (lowpass state, resample history, ramp, FIFO)
+    equal to ``FlacFleet(device="cpu")``'s numpy route, one launch a step,
+    every decoded lane on the kernel, the lane FIFOs viewing one step's
+    pinned block of windows at most (the pinned bytes they hold after each
+    step, and the caching host allocator's, printed); (3) the last step's
+    launch again by CUDA events, beside its bytes bound and the plain
+    version's time on the card, their outputs equal. -> (its timing row,
+    max |error|, the launches of (2)'s steps: counts zeroed just before
+    them and read just after)."""
+    for name, restored, lanes, fin, numel, geo in \
+            load_test_module("torch_kernel_cases").flac_dsp_cases("cuda"):
+        out, want_out = torch.full((numel,), -999.0, device="cuda"), torch.full((numel,), -999.0)
+        state = kd.flac_dsp_kernel(restored, lanes, fin, out, geo)
+        want = kd.flac_dsp_ref(restored.cpu(), lanes, fin, want_out, geo)
+        equal = torch.equal(out.cpu(), want_out) and torch.equal(state.cpu(), want)
+        say("flac_f64_dsp_case", case=name, lanes=len(lanes), equal=equal)
+        check(equal, f"flac_dsp_f64 kernel == plain version on {name}")
+
+    fx = load_fixtures()
+    rng = np.random.default_rng(18)
+    frames = [fx.flac_frame([bench_subframe(rng, FLAC_N)], FLAC_N, 0, 16) for _ in range(8)]
+    nfr = FLAC_DSP_FRAMES * FLAC_DSP_STEPS
+    variants, cuts = [], []
+    for v in range(len(frames)):
+        order = [(v + k) % len(frames) for k in range(nfr)]
+        data = flac_stream(fx, frames, 48000, 1, order)
+        ends = np.cumsum([len(frames[k]) for k in order])
+        head = len(data) - int(ends[-1])
+        variants.append(data)
+        cuts.append([0] + [head + int(ends[FLAC_DSP_FRAMES * (s + 1) - 1])
+                           for s in range(FLAC_DSP_STEPS)])
+
+    def feed(lane: int, step: int) -> bytes:
+        """A step's bytes a step; lane 0's run a step ahead from step 0."""
+        c = cuts[lane % len(variants)]
+        if lane == 0:
+            c = [c[0], c[2], c[3], c[3]]
+        return variants[lane % len(variants)][c[step]: c[step + 1]]
+
+    def pinned_blocks(fleet) -> dict:
+        """The pinned host blocks that the fleet's lane FIFOs view -> bytes
+        by block."""
+        return {id(a.base): a.base.nbytes for ln in fleet._lanes for a in ln.fifo
+                if a.base is not None and isinstance(a.base.base, torch.Tensor)
+                and a.base.base.is_pinned()}
+
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    recorded = []
+    kernel = ff.flac_dsp_kernel
+
+    def recording(*args):
+        recorded[:] = [args]
+        return kernel(*args)
+
+    fleets = {dev: FlacFleet(FLAC_DSP_LANES, device=dev) for dev in ("cuda", "cpu")}
+    for fleet in fleets.values():
+        for lane, vol, ramp in FLAC_DSP_VOLUMES:
+            fleet.set_volume(lane, vol, ramp=ramp)
+    seconds = {"cuda": 0.0, "cpu": 0.0}
+    held, copied = [], 0
+    ff.flac_dsp_kernel = recording
+    kernels.reset_counts()
+    try:
+        for step in range(FLAC_DSP_STEPS):
+            results = {}
+            for dev, fleet in fleets.items():
+                for lane in range(FLAC_DSP_LANES):
+                    data = feed(lane, step)
+                    if data:
+                        fleet.feed(lane, data)
+                t0 = sync_time()
+                results[dev] = fleet.step()
+                seconds[dev] += sync_time() - t0
+            got, want = results["cuda"], results["cpu"]
+            check(got is not None and want is not None
+                  and all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"step {step}: windows, masks and positions == the CPU fleet's")
+            blocks = pinned_blocks(fleets["cuda"])
+            stats = host_stats() if host_stats is not None else {}
+            held.append({"blocks": len(blocks), "bytes": sum(blocks.values()),
+                         **{k: v for k, v in stats.items()
+                            if k in ("allocated_bytes.current", "reserved_bytes.current")}})
+            copied += sum(a.base is None or not isinstance(a.base.base, torch.Tensor)
+                          for a in fleets["cuda"]._lanes[0].fifo)
+    finally:
+        ff.flac_dsp_kernel = kernel
+    launched, plain = kd.flac_dsp_kernel.launches, plain_calls()
+    card, cpu = fleets["cuda"], fleets["cpu"]
+    same_state = all(deep_equal(card.checkpoint(lane), cpu.checkpoint(lane))
+                     for lane in range(FLAC_DSP_LANES))
+    decoded = FLAC_DSP_LANES * FLAC_DSP_STEPS - 1  # lane 0 decodes nothing at step 2
+    say("flac_f64_dsp_fleet", lanes=FLAC_DSP_LANES, frames_per_step=FLAC_DSP_FRAMES,
+        steps=FLAC_DSP_STEPS, frames_parsed=card.metrics.frames_parsed,
+        checkpoints_equal=same_state, launches=launched, plain_calls=plain,
+        dsp_lanes_device=card.metrics.dsp_lanes_device,
+        dsp_lanes_host=card.metrics.dsp_lanes_host,
+        card_step_seconds=round(seconds["cuda"] / FLAC_DSP_STEPS, 4),
+        cpu_step_seconds=round(seconds["cpu"] / FLAC_DSP_STEPS, 4),
+        fifo_pinned_after_steps=json.dumps(held), lane0_fifo_copies=copied)
+    check(same_state, "every lane's checkpoint == the CPU fleet's")
+    check(launched == FLAC_DSP_STEPS and plain == 0,
+          f"one flac_dsp_f64 launch a step and no plain version ({launched}, {plain})")
+    check(card.metrics.dsp_lanes_device == decoded and card.metrics.dsp_lanes_host == 0,
+          f"every decoded lane's DSP ran in the kernel ({decoded})")
+    check(card.metrics.frames_parsed == FLAC_DSP_LANES * nfr, "every frame committed")
+    check(all(h["blocks"] <= 1 for h in held) and copied > 0,
+          f"the FIFOs view one step's pinned block at most, lane 0's backlog copied ({held})")
+
+    restored, lanes, fin, out, geo = recorded[0]
+    kernel(restored, lanes, fin, out, geo)
+    ms = min(event_ms(lambda: kernel(restored, lanes, fin, out, geo), 10) for _ in range(2))
+    plain_out = torch.full_like(out, -999.0)
+    plain_ms = event_ms(lambda: kd.flac_dsp_ref(restored, lanes, fin, plain_out, geo), 1)
+    err = float((out - plain_out).abs().max())
+    blocks = int(lanes[:, 1].sum())
+    samples_in = blocks * geo.block * (geo.channels if geo.asgn <= 7 else 2)
+    samples_out = blocks * geo.out_len * (geo.channels if geo.out_mode == "multi" else 1)
+    nbytes = samples_in * 8 + samples_out * 4 + lanes.numel() * 8 + fin.numel() * 8
+    say("time", kernel="flac_dsp_f64", lanes=len(lanes), blocks=blocks, samples=samples_in,
+        ms=round(ms, 4), plain_ms=round(plain_ms, 2), max_abs_err_vs_plain=err,
+        gsamples_per_s=round(samples_in / ms / 1e6, 2))
+    check(err == 0, "the recorded step's launch == the plain version on the card")
+    row = timing("flac_dsp_f64", ms, plain_ms, samples_in * FLAC_DSP_OPS * 2, nbytes)
+    return row, err, {"flac_dsp_f64": launched}
+
+
 # -- the write path: kernel (c) and the transcode ---------------------------------------------
 
 TRANSCODE_MONO = 16384  # 48 kHz mono PCM16 lanes (bench.py:670-688's stream at fleet width)
@@ -2251,7 +2405,8 @@ def dsp_counts() -> dict:
             "ima_decode": ka.ima_decode_kernel.launches,
             "msadpcm_decode": ka.msadpcm_decode_kernel.launches,
             "qoa_lms": kq.qoa_lms_kernel.launches, "lpc_restore": kg.lpc_restore_kernel.launches,
-            "iir_zero": kh.iir_zero_kernel.launches, "fma": kf.fma_kernel.launches}
+            "iir_zero": kh.iir_zero_kernel.launches, "fma": kf.fma_kernel.launches,
+            "flac_dsp_f64": kd.flac_dsp_kernel.launches}
 
 
 def plain_calls() -> int:
@@ -4140,10 +4295,11 @@ def meshed_run(launches: dict, run, calls: dict | None = None, case: str = ""):
             out = run()
     check(plain_calls() == 0, "no plain version on the sharded path")
     counts = dsp_counts()
-    if calls is not None:
-        seen = {k: calls.get((k, case, "launches"), 0) for k in counts}
-        check(seen == counts, f"{case}: every launch went through the recorder "
-                              f"({seen} of {counts})")
+    if calls is not None:  # the recorder stands in for the SHARDED_KERNELS wrappers
+        seen = {k: calls.get((k, case, "launches"), 0) for k in SHARDED_KERNELS}
+        want = {k: counts[k] for k in SHARDED_KERNELS}
+        check(seen == want, f"{case}: every launch went through the recorder "
+                            f"({seen} of {want})")
     accumulate(launches, counts)
     return out
 
@@ -4835,6 +4991,7 @@ def main() -> None:
         errs[name] = max(errs[name], err)
     del flac_streams
     phase_flac_transcode(fx)
+    times["flac_dsp_f64"], errs["flac_dsp_f64"], dsp_launches = phase_flac_f64_dsp()
     phase_engine_dsp()
     auplay_launches, auplay_fma_err = phase_auplay_main_path()
     errs["fma"] = max(errs["fma"], auplay_fma_err)
@@ -4884,7 +5041,10 @@ def main() -> None:
             ("iir_zero", "iir_zero", "iir.cu", "aukit_tpu/kernels/iir_pallas.py:62",
              flac_launches),
             # no Pallas kernel: XLA's fused multiply-add in the jitted dsp_chain
-            ("fma", "fma", "fma.cu", "aukit_tpu/parallel/pipeline.py:97", block_launches))
+            ("fma", "fma", "fma.cu", "aukit_tpu/parallel/pipeline.py:97", block_launches),
+            # no TPU kernel: the FLAC fleet's numpy host DSP
+            ("flac_dsp_f64", "flac_dsp_f64", "flac_dsp.cu",
+             "aukit_tpu/stream/flac_fleet.py _host_dsp (numpy)", dsp_launches))
     say("phase_seconds", **PHASE_SECONDS)
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)

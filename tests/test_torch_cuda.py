@@ -61,6 +61,7 @@ MSADPCM_CASES = [c[0] for c in kernel_cases.msadpcm_cases("cpu")]
 IMA_CASES = [c[0] for c in kernel_cases.ima_cases("cpu")]
 DECODE_CASES = [c[0] for c in kernel_cases.decode_cases("cpu")]
 WHOLE_FILE_CASES = [c[0] for c in kernel_cases.whole_file_cases("cpu", 0.05)]
+FLAC_DSP_CASES = [c[0] for c in kernel_cases.flac_dsp_cases("cpu")]
 
 
 def random_state(rng, lanes, device):
@@ -437,6 +438,80 @@ def test_iir_zero_kernel_matches_plain(rows, T, alpha):
     got = iir_zero_kernel(x, alpha)
     torch.cuda.synchronize()
     assert torch.equal(got, iir_zero_ref(x, alpha))
+
+
+@pytest.mark.parametrize("name", FLAC_DSP_CASES)
+def test_flac_dsp_kernel_matches_plain(name):
+    """The FLAC lanes' float64 DSP kernel against its plain version on the
+    CPU: every channel assignment and out mode, depths 8-24, identity,
+    linear and none, ramps and the sign wrap; outputs (the gaps between
+    lanes untouched) and states bit-equal, one launch."""
+    from aukit_tpu_torch.kernels import flac_dsp_kernel, flac_dsp_ref
+
+    _, restored, lanes, fin, numel, geo = next(c for c in kernel_cases.flac_dsp_cases("cuda")
+                                               if c[0] == name)
+    out = torch.full((numel,), -999.0, device="cuda")
+    want_out = torch.full((numel,), -999.0)
+    launches = flac_dsp_kernel.launches
+    state = flac_dsp_kernel(restored, lanes, fin, out, geo)
+    torch.cuda.synchronize()
+    assert flac_dsp_kernel.launches == launches + 1
+    want = flac_dsp_ref(restored.cpu(), lanes, fin, want_out, geo)
+    assert torch.equal(out.cpu(), want_out) and torch.equal(state.cpu(), want)
+
+
+def test_flac_fleet_host_route_dsp_on_cuda_matches_cpu():
+    """The default route of ``FlacFleet`` on the card runs the host route's
+    float64 DSP in the kernel: windows, masks, positions and checkpoints
+    equal the CPU fleet's (the numpy route) bit for bit, with a ramp in
+    flight, 44.1 kHz mid/side lanes and a short final frame, which takes
+    the numpy route; the kernel launched, no plain version ran, and every
+    decoded lane counted on one route."""
+    from aukit_tpu_torch import FlacFleet
+    from aukit_tpu_torch.examples.flac_radio_fleet import _make_station
+
+    fixtures = load_sibling("fixtures")
+    rng = np.random.default_rng(8)
+    frames = []
+    for k, n in enumerate([1000] * 5 + [300]):
+        frames.append(fixtures.flac_frame(
+            [{"type": "verbatim", "values": [int(v) for v in rng.integers(-30000, 30000, n)]},
+             {"type": "fixed", "order": 2, "warmup": [1, -1],
+              "residuals": [int(v) for v in rng.integers(-200, 200, n - 2)]}],
+            n, 10, 16, frame_number=k))
+    stereo = fixtures.flac_stream_header(44100, 2, 16, 5300) + b"".join(frames)
+    streams = [_make_station(rng, 3) for _ in range(3)] + [stereo]
+    runs = []
+    for device in ("cuda", "cpu"):
+        kernels.reset_counts()
+        fleet = FlacFleet(len(streams), device=device)
+        fleet.set_volume(1, 0.4, ramp=True)
+        steps = []
+        for off in range(0, max(map(len, streams)), 9000):
+            for lane, d in enumerate(streams):
+                if off < len(d):
+                    fleet.feed(lane, d[off: off + 9000])
+            steps.append(fleet.step())
+        for lane in range(len(streams)):
+            fleet.feed(lane, None)
+        while not fleet.done:
+            steps.append(fleet.step())
+        runs.append((steps, [fleet.checkpoint(lane) for lane in range(len(streams))], fleet,
+                     kernels.flac_dsp_kernel.launches, sum(p.calls for p in kernels.PLAIN)))
+    (got, ck_got, card, launched, plain), (want, ck_want, cpu, _, _) = runs
+    assert launched > 0 and plain == 0
+    assert card.metrics.dsp_lanes_host > 0 and cpu.metrics.dsp_lanes_device == 0
+    assert (card.metrics.dsp_lanes_device + card.metrics.dsp_lanes_host
+            == cpu.metrics.dsp_lanes_host)
+    assert len(got) == len(want) and any(s is not None for s in got)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        for a, b in zip(g or (), w or ()):
+            np.testing.assert_array_equal(a, b)
+    for x, y in zip(ck_got, ck_want):
+        for k in x:
+            np.testing.assert_array_equal(np.asarray(x[k], dtype=object),
+                                          np.asarray(y[k], dtype=object), err_msg=k)
 
 
 def test_flac_fleet_on_cuda_matches_cpu():

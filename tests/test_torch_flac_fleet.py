@@ -27,6 +27,9 @@ from aukit_tpu_torch.stream import flac_fleet as ff
 from aukit_tpu_torch.stream.flac_fleet import FlacFleet
 from tests import fixtures
 from tests.test_flac_fleet import make_flac
+from tests.torch_kernel_cases import flac_dsp_cases
+
+FLAC_DSP_CASES = [c[0] for c in flac_dsp_cases("cpu")]
 
 
 def port_fleet(lanes, **kw):
@@ -226,6 +229,193 @@ def test_host_route_runs_no_kernel_and_fleet_options():
             FlacFleet(2, device_dsp=True)
         with pytest.raises(RuntimeError, match="CUDA"):
             FlacFleet(2, device_restore=True)
+
+
+# -- the host route's float64 DSP in kernel aukit_flac_dsp_f64 (its plain version) ---------
+
+@pytest.mark.parametrize("name", FLAC_DSP_CASES)
+def test_flac_dsp_plain_equals_host_dsp(name):
+    """The kernel's plain version on its cases (``flac_dsp_cases``) against
+    ``FlacFleet._host_dsp`` on the same restored samples, lane states and
+    gains: every lane's samples, lowpass states and resample history bit
+    for bit, and nothing written outside the lanes' outputs."""
+    _, restored, lanes, fin, numel, geo = next(c for c in flac_dsp_cases("cpu") if c[0] == name)
+    C, n = geo.channels, geo.block
+    multi = geo.out_mode == "multi"
+    out = torch.full((numel,), -999.0)
+    state = kernels.flac_dsp_ref(restored, lanes, fin, out, geo).numpy()
+    fleet = port_fleet(len(lanes), mono=not multi, channels=C,
+                       interpolation="linear" if geo.linear else "none")
+    rng = np.random.default_rng(5)
+    nsubs = C if geo.asgn <= 7 else 2
+    parsed, segments = [], []
+    for j, (in_off, m, _o, ramp_pos, ramp_len) in enumerate(lanes.tolist()):
+        ln = fleet._lanes[j]
+        ln.rate, ln.channels, ln.depth, ln.alpha = geo.rate, C, geo.depth, geo.alpha
+        ln.last = rng.standard_normal((C, 2))  # none and linear never read it
+        ln.ls = fin[j, 2:].numpy().copy()
+        ln.gain0, ln.gain = float(fin[j, 0]), float(fin[j, 1])
+        ln.ramp_pos, ln.ramp_len = ramp_pos, ramp_len
+        parsed.append((j, np.tile([n, geo.asgn], (m, 1)), {"block": np.full(m * nsubs, n)},
+                       None, None))
+        segments.append(restored.numpy()[in_off: in_off + m * nsubs * n])
+    fleet._host_dsp(parsed, segments)
+    written = np.zeros(numel, bool)
+    for j, (_i, m, out_off, _p, _l) in enumerate(lanes.tolist()):
+        ln = fleet._lanes[j]
+        T = m * geo.out_len
+        want = np.concatenate(list(ln.fifo), axis=-1)
+        got = out.numpy()[out_off: out_off + (C if multi else 1) * T]
+        np.testing.assert_array_equal(got.reshape(C, T) if multi else got, want)
+        written[out_off: out_off + got.size] = True
+        np.testing.assert_array_equal(state[j, :C], ln.ls)
+        np.testing.assert_array_equal(state[j, C:].reshape(C, 2), ln.last)
+    assert (out.numpy()[~written] == -999.0).all()
+
+
+def card_dsp_fleet(lanes, **kw):
+    """A CPU fleet whose host route takes the f64 DSP kernel's route, as a
+    fleet on a card does: the kernel's plain version runs on CPU tensors."""
+    fleet = port_fleet(lanes, **kw)
+    fleet._card_dsp = lambda: True
+    return fleet
+
+
+def assert_card_dsp_equals_numpy(datas, chunk=3000, volumes=(), **kw):
+    """The same bytes through the numpy route and the kernel's route: every
+    window, mask and position, and every checkpoint, bit-equal. -> the
+    kernel route's fleet and steps."""
+    want_fleet = port_fleet(len(datas), **kw)
+    want = drive(want_fleet, datas, chunk, volumes)
+    kernels.reset_counts()
+    fleet = card_dsp_fleet(len(datas), **kw)
+    got = drive(fleet, datas, chunk, volumes)
+    assert kernels.flac_dsp_ref.calls > 0
+    assert_steps_equal(got, want)
+    for lane in range(len(datas)):
+        assert_checkpoints_equal(fleet.checkpoint(lane), want_fleet.checkpoint(lane))
+    assert want_fleet.metrics.dsp_lanes_device == 0
+    return fleet, got
+
+
+@pytest.mark.parametrize("datas,kw", [
+    pytest.param([make_flac(48000, 6, seed=101)], {}, id="mono"),
+    *(pytest.param([make_flac(48000, 6, channels=2, chan_asgn=a, seed=102 + a)], {},
+                   id=f"stereo_asgn{a}") for a in (0, 8, 9, 10)),
+    pytest.param([make_flac(44100, 5, channels=3, chan_asgn=2, seed=103),
+                  make_flac(48000, 5, channels=2, chan_asgn=10, seed=104),
+                  make_flac(32000, 5, seed=119)],
+                 {"mono": False, "channels": 3}, id="multichannel_mono_false"),
+    pytest.param([make_flac(44100, 5, channels=3, chan_asgn=2, seed=105)], {},
+                 id="three_channels_mixed"),
+    *(pytest.param([make_flac(44100, 6, channels=2, chan_asgn=10, seed=106, depth=d),
+                    make_flac(48000, 6, seed=107, depth=d)], {}, id=f"depth{d}")
+      for d in (8, 16, 24)),
+    pytest.param([make_flac(48000, 6, seed=108)], {"interpolation": "linear"},
+                 id="identity_48k"),
+    *(pytest.param([make_flac(r, 6, seed=109), make_flac(r, 6, channels=2, chan_asgn=8,
+                                                         seed=110)],
+                   {"interpolation": "linear"}, id=f"linear_{r}") for r in (44100, 32000)),
+    pytest.param([make_flac(44100, 6, seed=111), make_flac(32000, 6, channels=2, chan_asgn=9,
+                                                           seed=112)],
+                 {"interpolation": "none"}, id="none"),
+])
+def test_card_dsp_plain_equals_numpy_route(datas, kw):
+    """The f64 DSP kernel's plain version against ``_host_dsp``, lane by
+    lane bit for bit over every step (the lowpass states and resample
+    histories carried from step to step): stereo assignments, three
+    channels mixed or kept, depths 8-24, identity, linear and none."""
+    fleet, got = assert_card_dsp_equals_numpy(datas, **kw)
+    assert len(got) >= 3 and fleet.metrics.dsp_lanes_device > 0
+    assert fleet.metrics.dsp_lanes_host == 0
+
+
+@pytest.mark.parametrize("volumes", [
+    pytest.param([(0, 0.5, False), (1, 1.25, False)], id="constant"),
+    pytest.param([(0, 0.25, True), (1, 1.7, True)], id="ramp")])
+def test_card_dsp_plain_gain_equals_numpy_route(volumes):
+    """A constant gain, and a ramp over a second of output that crosses
+    steps (drip-fed 3000 bytes a step) and ends inside a block."""
+    datas = [make_flac(48000, 30, seed=113), make_flac(44100, 30, channels=2, chan_asgn=10,
+                                                      seed=114)]
+    fleet, got = assert_card_dsp_equals_numpy(datas, volumes=volumes)
+    assert len(got) >= 3 and fleet.metrics.dsp_lanes_host == 0
+
+
+def test_card_dsp_ramp_ending_before_a_steps_last_block_equals_numpy_route():
+    """Ramps to 0.3 on 44.1 kHz lanes whose first step commits 12 blocks of
+    4096 or more: each ramp ends inside the 11th block, where g0 + (g1 -
+    g0) * 1.0 is not 0.3 in float64 (from 1.0: 0.30000000000000004; from
+    1e20: 0.0, silence), and the blocks after it take 0.3 itself, on both
+    routes: the numpy route decides the line block by block."""
+    datas = [make_flac(44100, 14, n=4096, seed=120),
+             make_flac(44100, 14, n=4096, channels=2, chan_asgn=10, seed=121)]
+    volumes = [(0, 0.3, True), (1, 1e20, False), (1, 0.3, True)]
+    fleet, got = assert_card_dsp_equals_numpy(datas, chunk=1 << 22, volumes=volumes)
+    assert got[0] is not None and fleet.metrics.dsp_lanes_host == 0
+    assert fleet.metrics.frames_parsed >= 24 and fleet.get_volume(1) == 0.3
+    # the lane ramped from 1e20 is loud after its ramp, not silent
+    assert np.abs(got[1][0][1, 8000:]).max() > 1.0
+
+
+def test_card_dsp_fifos_view_one_step_of_windows():
+    """The kernel route's lane FIFOs view its block of windows for one step
+    at most: a lane fed 3.4 s at once (its remainder outlives the next
+    step's pop) and a drip-fed lane. After every step no FIFO entry views
+    any block but that step's, and the windows, masks, positions and
+    checkpoints equal the numpy route's."""
+    datas = [make_flac(48000, 40, n=4096, seed=122), make_flac(48000, 40, n=4096, seed=123)]
+    want_fleet = port_fleet(len(datas))
+    fleet = card_dsp_fleet(len(datas))
+    copied = 0
+    for step in range(12):
+        feeds = [datas[0] if step == 0 else None if step == 1 else b"",
+                 datas[1][step * 16000: (step + 1) * 16000] or None]
+        for f in (want_fleet, fleet):
+            for lane, d in enumerate(feeds):
+                if d != b"":
+                    f.feed(lane, d)
+        assert_steps_equal([fleet.step()], [want_fleet.step()])
+        blocks = {id(a.base) for ln in fleet._lanes for a in ln.fifo
+                  if a.base is not None and isinstance(a.base.base, torch.Tensor)}
+        held = fleet._windows_held
+        assert blocks <= ({id(held[0])} if held else set())
+        copied += sum(a.base is None or not isinstance(a.base.base, torch.Tensor)
+                      for a in fleet._lanes[0].fifo)
+    assert copied > 0 and fleet.metrics.dsp_lanes_device > 0
+    for lane in range(len(datas)):
+        assert_checkpoints_equal(fleet.checkpoint(lane), want_fleet.checkpoint(lane))
+
+
+def test_card_dsp_ragged_fleet_equals_numpy_route():
+    """A ragged fleet: uniform lanes, a lane whose short final frame sends
+    its last step to the numpy route, and a lane whose blocks (8 kHz, 4096
+    samples: 24576 at 48 kHz) overflow the kernel's shared memory. Windows,
+    masks, positions and checkpoints equal the numpy route's, and each
+    decoded lane of each step counts once, on one route."""
+    datas = [make_flac(48000, 6, seed=115), make_flac(44100, 5, seed=116, final_short=300),
+             make_flac(8000, 2, n=4096, seed=117),
+             make_flac(32000, 5, channels=2, chan_asgn=8, seed=118)]
+    decoded = []
+
+    class Counted(FlacFleet):
+        def _decode_step(self, parsed):
+            decoded.append(len(parsed))
+            return super()._decode_step(parsed)
+
+    want_fleet = port_fleet(len(datas))
+    want = drive(want_fleet, datas, chunk=3000)
+    kernels.reset_counts()
+    fleet = Counted(len(datas), device="cpu")
+    fleet._card_dsp = lambda: True
+    got = drive(fleet, datas, chunk=3000)
+    assert_steps_equal(got, want)
+    for lane in range(len(datas)):
+        assert_checkpoints_equal(fleet.checkpoint(lane), want_fleet.checkpoint(lane))
+    m = fleet.metrics
+    assert m.dsp_lanes_device + m.dsp_lanes_host == sum(decoded)
+    assert m.dsp_lanes_device > 0 and m.dsp_lanes_host >= 3
+    assert kernels.flac_dsp_ref.calls > 0
 
 
 # -- the device routes --------------------------------------------------------------------

@@ -4,7 +4,9 @@ DFPWM decode, with and without its fused DSP, and the DFPWM encode
 zero-state lowpass (``csrc/iir.cu``), the last three on the pipelined
 skeleton ``ring_rows`` of ``csrc/lane_scan.cuh``; the QOA LMS
 (``csrc/qoa.cu``) and the IMA and MS ADPCM decodes (``csrc/adpcm.cu``) on its
-``window_rows``; and ``recorded_stream_decodes``, which keeps the block
+``window_rows``; the FLAC lanes' float64 DSP (``csrc/flac_dsp.cu``, whose
+CPU test holds the plain version to the FLAC fleet's numpy host route); and
+``recorded_stream_decodes``, which keeps the block
 decodes the stream iterators make so that each replays at its own shape on
 another device. One definition for the card tests
 (``tests/test_torch_cuda.py``) and for ``chip_smoke.py``, which both load
@@ -602,6 +604,77 @@ def whole_file_cases(device="cuda", seconds: float = WHOLE_FILE_SECONDS):
     blocks[-2:] = last
     yield ("lpc_file", "lpc", tuple(_i32(a, device) for a in (
         vals, np.full(rows, 8), shifts, blocks, coefs)) + (8,))
+
+
+# (name, channels, block, assignment, depth, rate, linear, out_mode, lanes)
+FLAC_DSP_SPECS = (
+    ("mono_identity", 1, 4096, 0, 16, 48000, True, "first", 7),
+    ("mono_none_44k1", 1, 1024, 0, 16, 44100, False, "first", 5),
+    ("left_side_44k1_mix", 2, 1024, 8, 16, 44100, True, "mix", 6),
+    ("side_right_32k_mix", 2, 1152, 9, 24, 32000, True, "mix", 5),
+    ("mid_side_odd_block_multi", 2, 520, 10, 24, 32000, True, "multi", 5),
+    ("independent_48k_multi", 2, 4096, 1, 16, 48000, True, "multi", 4),
+    ("three_channels_8bit_mix", 3, 576, 2, 8, 22050, True, "mix", 4),
+    ("three_channels_multi", 3, 1024, 2, 16, 44100, True, "multi", 3),
+)
+
+
+def flac_dsp_cases(device="cuda"):
+    """-> (name, restored int64[N] on ``device``, lanes int64[L, 5] and fin
+    float64[L, 2 + C] on the CPU, out's length, DspGeometry) of the FLAC
+    lanes' float64 DSP kernel: every channel assignment, mono, stereo and 3
+    channels in each out mode, depths 8-24, identity, linear and none, an
+    odd block size; 1-4 blocks a lane, gaps between the lanes' samples and
+    outputs, restored values over the whole two's-complement range of the
+    depth (the sign wrap), lowpass states, constant gains (1.0 among them),
+    ramps that end inside a lane's output, a ramp whose two gains are
+    equal, and ramps to 0.3 that end blocks before a lane's last."""
+    from aukit_tpu_torch.kernels.flac_dsp_cuda import DspGeometry
+    from aukit_tpu_torch.parallel.pipeline import fir_alpha
+
+    rng = np.random.default_rng(61)
+    for name, C, n, asgn, depth, rate, linear, out_mode, L in FLAC_DSP_SPECS:
+        out_len = n * 48000 // rate
+        nsubs = C if asgn <= 7 else 2
+        width = C if out_mode == "multi" else 1
+        m = rng.integers(1, 5, L)
+        in_off = np.cumsum(rng.integers(0, 8, L) + np.concatenate([[0], m[:-1] * nsubs * n]))
+        out_off = np.cumsum(rng.integers(0, 8, L) + np.concatenate([[0], m[:-1] * width * out_len]))
+        N = int(in_off[-1] + m[-1] * nsubs * n)
+        restored = rng.integers(-(1 << depth), 1 << depth, N)
+        ramp_len = np.where(np.arange(L) % 2 == 1, 48000, 0)
+        ramp_pos = np.where(ramp_len > 0, 48000 - rng.integers(1, 3 * out_len, L), 0)
+        gain = rng.uniform(0.0, 2.0, L)
+        gain[0] = 1.0
+        gain0 = np.where(ramp_len > 0, rng.uniform(0.0, 2.0, L), gain)
+        if L > 3:
+            gain0[3] = gain[3]  # ramping between equal gains: the scalar
+        lanes = np.stack([in_off, m, out_off, ramp_pos, ramp_len], axis=1).astype(np.int64)
+        fin = np.concatenate([gain0[:, None], gain[:, None], rng.standard_normal((L, C)) * 0.3],
+                             axis=1)
+        geo = DspGeometry(C, n, asgn, depth, rate, 48000, out_len, linear, out_mode,
+                          float(fir_alpha(rate, 48000)))
+        yield (name, torch.tensor(restored, dtype=torch.int64, device=device),
+               torch.from_numpy(lanes), torch.from_numpy(fin),
+               int(out_off[-1] + m[-1] * width * out_len), geo)
+    # ramps to 0.3 over a second that end inside block 10 of a lane's 12
+    # blocks of 44.1 kHz (4458 samples each at 48 kHz): samples after the
+    # end in that block take g0 + (g1 - g0) * 1.0, which is not 0.3 in
+    # float64 (from 1.0: 0.30000000000000004; from 1e20: 0.0), and the
+    # blocks after it the gain itself (FlacFleet._host_dsp decides the line
+    # block by block, from the ramp's position at the block)
+    L, n, rate, m = 3, 4096, 44100, 12
+    out_len = n * 48000 // rate
+    restored = rng.integers(-(1 << 16), 1 << 16, L * m * n)
+    lanes = np.stack([np.arange(L) * m * n, np.full(L, m), np.arange(L) * m * out_len,
+                      [0, 0, 1000], np.full(L, 48000)], axis=1).astype(np.int64)
+    fin = np.concatenate([np.array([[1.0], [1e20], [1.0]]), np.full((L, 1), 0.3),
+                          rng.standard_normal((L, 1)) * 0.3], axis=1)
+    geo = DspGeometry(1, n, 0, 16, rate, 48000, out_len, True, "first",
+                      float(fir_alpha(rate, 48000)))
+    yield ("ramps_to_0.3_end_before_last_block",
+           torch.tensor(restored, dtype=torch.int64, device=device), torch.from_numpy(lanes),
+           torch.from_numpy(fin), L * m * out_len, geo)
 
 
 # the block decodes the stream iterators make, by the kernel each one
