@@ -10,13 +10,13 @@
 // Python loop over lanes, for work the card does in one pass.
 //
 // What it computes, per lane of one geometry group (the lanes whose frames
-// this step share a rate, a channel count C, one block size n >= 2 and one
-// channel assignment), its m blocks in time order, all in float64 and in
-// the host route's operation order, so that every output and state is
-// bit-equal to it:
-//   1. stereo decorrelation (assignments 8-10) and the one-sided sign wrap
-//      of the restored int64 samples (codecs/flac.py decorrelate_frames),
-//      then the division by 2^depth;
+// this step share a rate, a channel count C and one block size n >= 2), its
+// m blocks in time order, all in float64 and in the host route's operation
+// order, so that every output and state is bit-equal to it:
+//   1. stereo decorrelation by each block's own channel assignment (8-10,
+//      read from a table of one a block: flac -m picks one a frame) and the
+//      one-sided sign wrap of the restored int64 samples (codecs/flac.py
+//      decorrelate_frames), then the division by 2^depth;
 //   2. the block resample of block_resample_plan in the modes "none" and
 //      "linear" (native/flacbits.cpp block_resample_rows: d = p2 - p1;
 //      m = d * frac; v = p1 + m). Neither mode reads the history columns;
@@ -63,10 +63,10 @@ namespace {
 
 constexpr int THREADS = 256;
 // 64 KB of shared memory a mono 48 kHz lane fits three blocks an SM; the
-// registers are held to that too (79 a thread, none spilled: 0.68 ms against
+// registers are held to that too (80 a thread, none spilled: 0.68 ms against
 // 0.84 at 94 and two blocks an SM, one radio step on the H100)
 constexpr int BLOCKS_PER_SM = 3;
-constexpr int LANE_INTS = 5;  // in_off, blocks, out_off, ramp_pos, ramp_len
+constexpr int LANE_INTS = 6;  // in_off, blocks, out_off, ramp_pos, ramp_len, asgn_off
 
 __device__ __forceinline__ long long wrapping_add(long long a, long long b) {
   return static_cast<long long>(static_cast<unsigned long long>(a) +
@@ -116,9 +116,9 @@ __device__ __forceinline__ double scaled(double y, double g) {
 
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 flac_dsp_f64_kernel(const long long* __restrict__ in, const long long* __restrict__ lanes_i,
-                    const double* __restrict__ lanes_f, float* __restrict__ out,
-                    double* __restrict__ state, int C, int n, int asgn, int depth, int rate,
-                    int out_rate, int out_len, int linear, int out_mode, double alpha) {
+                    const int* __restrict__ asgns, const double* __restrict__ lanes_f,
+                    float* __restrict__ out, double* __restrict__ state, int C, int n, int depth,
+                    int rate, int out_rate, int out_len, int linear, int out_mode, double alpha) {
   extern __shared__ double smem[];
   const int W = C * out_len;
   double* carry = smem + 2 * W;
@@ -126,13 +126,15 @@ flac_dsp_f64_kernel(const long long* __restrict__ in, const long long* __restric
   const long long* li = lanes_i + static_cast<long long>(lane) * LANE_INTS;
   const long long in_off = li[0], m = li[1], out_off = li[2], ramp_pos = li[3],
                   ramp_len = li[4];
+  const int* asgn = asgns + li[5];  // the lane's blocks' channel assignments
   const double* lf = lanes_f + static_cast<long long>(lane) * (2 + C);
   const double g0 = lf[0], g1 = lf[1];
   if (tid < C) carry[tid] = lf[2 + tid];
   const double c = __dsub_rn(1.0, alpha);
-  const long long block_in = static_cast<long long>(asgn <= 7 ? C : 2) * n;
+  // a block is C rows of n under every assignment: 8-10 come only at C = 2
+  const long long block_in = static_cast<long long>(C) * n;
   const long long T = m * out_len;  // the lane's output samples a channel
-  Frame fr{in + in_off, n, asgn, 1LL << (depth - 1), 1LL << depth, ldexp(1.0, -depth)};
+  Frame fr{in + in_off, n, 0, 1LL << (depth - 1), 1LL << depth, ldexp(1.0, -depth)};
   const double rate_out = static_cast<double>(out_rate);
   // output i reads input f0 = i * rate / out_rate (remainder rem): a
   // thread's outputs step by THREADS, so f0 and rem step by whole quotients
@@ -144,6 +146,7 @@ flac_dsp_f64_kernel(const long long* __restrict__ in, const long long* __restric
 
   for (long long r = 0; r < m; ++r) {
     fr.f = in + in_off + r * block_in;
+    fr.asgn = asgn[r];  // one value for the whole thread block: no divergence
     // 1, 2: decode, resample, y = x * alpha, the carried state into y[0]
     for (int ch = 0; ch < C; ++ch) {
       double* y = smem + ch * out_len;
@@ -226,23 +229,26 @@ flac_dsp_f64_kernel(const long long* __restrict__ in, const long long* __restric
 
 }  // namespace
 
-// restored i64[N]; lanes_i i64[L,5] (in_off, blocks >= 1, out_off,
-// ramp_pos, ramp_len); lanes_f f64[L,2+C] (gain0, gain, the C lowpass
-// states); out f32 (each lane's [C or 1, blocks*out_len] at out_off);
+// restored i64[N]; lanes_i i64[L,6] (in_off, blocks >= 1, out_off,
+// ramp_pos, ramp_len, asgn_off); asgns i32 (a lane's blocks' channel
+// assignments from asgns[asgn_off]; 8-10 only where C = 2); lanes_f
+// f64[L,2+C] (gain0, gain, the C lowpass states); out f32 (each lane's
+// [C or 1, blocks*out_len] at out_off);
 // state f64[L,3C] (the C new lowpass states, then the C pairs of last
 // samples); all contiguous, the offsets checked by the wrapper. linear: 0
 // for "none", 1 for "linear"; out_mode: 0 the first channel, 1 the mean, 2
 // every channel. Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int aukit_flac_dsp_f64(const void* restored, const void* lanes_i, const void* lanes_f,
-                                  void* out, void* state, int lanes, int C, int n, int asgn,
-                                  int depth, int rate, int out_rate, int out_len, int linear,
-                                  int out_mode, double alpha, void* stream) {
+extern "C" int aukit_flac_dsp_f64(const void* restored, const void* lanes_i, const void* asgns,
+                                  const void* lanes_f, void* out, void* state, int lanes, int C,
+                                  int n, int depth, int rate, int out_rate, int out_len,
+                                  int linear, int out_mode, double alpha, void* stream) {
   const size_t smem = (2 * static_cast<size_t>(C) * out_len + C) * sizeof(double);
   cudaFuncSetAttribute(flac_dsp_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   flac_dsp_f64_kernel<<<lanes, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(restored), static_cast<const long long*>(lanes_i),
-      static_cast<const double*>(lanes_f), static_cast<float*>(out), static_cast<double*>(state),
-      C, n, asgn, depth, rate, out_rate, out_len, linear, out_mode, alpha);
+      static_cast<const int*>(asgns), static_cast<const double*>(lanes_f),
+      static_cast<float*>(out), static_cast<double*>(state), C, n, depth, rate, out_rate,
+      out_len, linear, out_mode, alpha);
   return static_cast<int>(cudaGetLastError());
 }

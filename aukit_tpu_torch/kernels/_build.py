@@ -48,7 +48,7 @@ _SIGNATURES = {
     "aukit_lpc_restore": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
     "aukit_lpc_restore_wide": (_P, _P, _P, _P, _P, _P, ctypes.c_int, _LL, ctypes.c_int, _P),
     "aukit_iir_zero": (_P, _P, ctypes.c_int, _LL, ctypes.c_float, ctypes.c_float, _P),
-    "aukit_flac_dsp_f64": (_P, _P, _P, _P, _P, *(ctypes.c_int,) * 10, ctypes.c_double, _P),
+    "aukit_flac_dsp_f64": (_P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 9, ctypes.c_double, _P),
 }
 
 

@@ -85,6 +85,7 @@ class BatchMetrics:
     dsp_frames_device: int = 0  # host route: frames of the lanes whose DSP ran in the kernel
     dsp_frames_host: int = 0  # host route: frames of the lanes whose DSP ran in numpy
     dsp_lanes_mixed_asgn: int = 0  # host route: numpy lanes whose frames mix assignments
+    dsp_lanes_mixed_asgn_device: int = 0  # host route: kernel lanes whose frames mix them
     frames_asgn_indep: int = 0  # parsed frames of independent channels (mono included)
     frames_asgn_left_side: int = 0  # parsed frames coded left/side
     frames_asgn_side_right: int = 0  # parsed frames coded side/right

@@ -19,18 +19,19 @@ Three routes, as in the JAX package:
 - **host** (``device_dsp=False``, the default): the native/numpy int64
   restore and float64 DSP, each lane bit-equal to the JAX fleet's host route
   and so to a solo ``stream.flac`` run. On a card (a CUDA ``device`` with a
-  card present) the float64 DSP of every lane whose frames this step are
-  uniform (``_lane_geometry``), with "none" or "linear" interpolation and
-  blocks that fit the kernel's shared memory, runs in the kernel
-  ``aukit_flac_dsp_f64`` (``kernels/flac_dsp_cuda.py``), one launch a
-  geometry group, bit-equal to the numpy route; the other lanes of the
-  step (a short final frame, a change of block size, cubic or sinc, low
-  rates whose blocks do not fit) take the numpy route. The restore stays on
+  card present) the float64 DSP of every lane whose frames this step share
+  one block size (``_uniform_block``; each frame keeps its own channel
+  assignment), with "none" or "linear" interpolation and blocks that fit
+  the kernel's shared memory, runs in the kernel ``aukit_flac_dsp_f64``
+  (``kernels/flac_dsp_cuda.py``), one launch a geometry group, bit-equal to
+  the numpy route; the other lanes of the step (a short final frame, a
+  change of block size, cubic or sinc, low rates whose blocks do not fit)
+  take the numpy route. The restore stays on
   the host unless ``CONFIG.flac_device_restore_min`` sends a step's restore
   to kernel (g) (``device_restore=None`` on a CUDA ``device``), which gives
   the same samples. ``metrics.dsp_lanes_device`` and ``dsp_lanes_host``
   count the lanes each DSP route took (and, while a profiler records, their
-  frames and the numpy route's lanes whose frames mix channel assignments:
+  frames and each route's lanes whose frames mix channel assignments:
   ``utils.trace``).
 - **staged device DSP** (``device_restore=False, device_dsp=True``): host
   restore, then the resample and the lowpass on the torch device, the
@@ -547,19 +548,26 @@ class FlacFleet:
             return "multi"
         return "mix" if C > 1 else "first"
 
+    def _uniform_block(self, p) -> int | None:
+        """The block size n >= 2 that EVERY frame and subframe a lane
+        committed this step shares, at a device-eligible depth, else None."""
+        fm, sub = p[1], p[2]
+        if self._lanes[p[0]].depth > flac_codec.DEVICE_MAX_DEPTH or len(fm) == 0:
+            return None
+        n = int(fm[0, 0])
+        if n < 2 or not ((fm[:, 0] == n).all() and (sub["block"] == n).all()):
+            return None
+        return n
+
     def _lane_geometry(self, p):
         """(rate, channels, depth, block, chan_asgn) when EVERY frame a lane
-        committed this step shares one device-eligible geometry, else None."""
-        li, fm, sub = p[0], p[1], p[2]
-        ln = self._lanes[li]
-        if ln.depth > flac_codec.DEVICE_MAX_DEPTH or len(fm) == 0:
+        committed this step shares one device-eligible geometry, one channel
+        assignment included (``frames_to_float`` takes one), else None."""
+        n, fm = self._uniform_block(p), p[1]
+        if n is None or not (fm[:, 1] == fm[0, 1]).all():
             return None
-        n, asgn = int(fm[0, 0]), int(fm[0, 1])
-        if n < 2 or not ((fm[:, 0] == n).all() and (fm[:, 1] == asgn).all()):
-            return None
-        if not (sub["block"] == n).all():
-            return None
-        return (ln.rate, ln.channels, ln.depth, n, asgn)
+        ln = self._lanes[p[0]]
+        return (ln.rate, ln.channels, ln.depth, n, int(fm[0, 1]))
 
     def _decode_step(self, parsed):
         """One fleet-wide LPC restore, then per-lane decorrelate + batched
@@ -618,14 +626,19 @@ class FlacFleet:
 
     def _count_dsp_frames(self, parsed, rest):
         """The host route's frames on each DSP route (``rest``: the indices
-        into ``parsed`` of the numpy route's lanes), and the numpy route's
-        lanes whose frames mix channel assignments."""
+        into ``parsed`` of the numpy route's lanes), and each route's lanes
+        whose frames mix channel assignments."""
         m = self.metrics
-        host = [parsed[k][1] for k in rest]
-        on_host = sum(len(fm) for fm in host)
-        m.dsp_frames_host += on_host
-        m.dsp_frames_device += sum(len(p[1]) for p in parsed) - on_host
-        m.dsp_lanes_mixed_asgn += sum(bool((fm[:, 1] != fm[0, 1]).any()) for fm in host)
+        on_host = set(rest)
+        for k, p in enumerate(parsed):
+            fm = p[1]
+            mixed = bool((fm[:, 1] != fm[0, 1]).any())
+            if k in on_host:
+                m.dsp_frames_host += len(fm)
+                m.dsp_lanes_mixed_asgn += mixed
+            else:
+                m.dsp_frames_device += len(fm)
+                m.dsp_lanes_mixed_asgn_device += mixed
 
     def _joined_values(self, parts, card_dsp: bool):
         """The step's parsed values joined into one int64 array, and the
@@ -649,16 +662,17 @@ class FlacFleet:
 
     def _kernel_geometry(self, p) -> DspGeometry | None:
         """The kernel's geometry for one lane's frames of this step, or None
-        when the lane takes the numpy route: frames that are not uniform
-        (``_lane_geometry``), or frames the kernel does not take
-        (``flac_dsp_cuda.geometry``: cubic or sinc, a block too large for
-        its shared memory, ...)."""
-        key = self._lane_geometry(p)
-        if key is None:
+        when the lane takes the numpy route: frames of more than one block
+        size (``_uniform_block``: a track's short last frame), or frames the
+        kernel does not take (``flac_dsp_cuda.geometry``: cubic or sinc, a
+        block too large for its shared memory, ...). The frames' channel
+        assignments may differ: the kernel reads one a block."""
+        n = self._uniform_block(p)
+        if n is None:
             return None
-        rate, C, depth, n, asgn = key
-        return flac_dsp_geometry(rate, C, depth, n, asgn, self.out_rate, self.mode,
-                                 self._out_mode(C), self._lanes[p[0]].alpha)
+        ln = self._lanes[p[0]]
+        return flac_dsp_geometry(ln.rate, ln.channels, ln.depth, n, p[1][:, 1], self.out_rate,
+                                 self.mode, self._out_mode(ln.channels), ln.alpha)
 
     def _kernel_dsp(self, parsed, restored: torch.Tensor, voffs: np.ndarray) -> list[int]:
         """The host route's DSP on the card for every lane the kernel takes:
@@ -685,16 +699,21 @@ class FlacFleet:
             width = geo.channels if geo.out_mode == "multi" else 1
             lanes = np.empty((len(ks), LANE_FIELDS), np.int64)
             fin = np.empty((len(ks), 2 + geo.channels), np.float64)
+            blocks = 0
             for j, k in enumerate(ks):
                 ln = self._lanes[parsed[k][0]]
                 m = len(parsed[k][1])
-                lanes[j] = (voffs[k], m, at, ln.ramp_pos, ln.ramp_len)
+                lanes[j] = (voffs[k], m, at, ln.ramp_pos, ln.ramp_len, blocks)
                 fin[j, 0], fin[j, 1], fin[j, 2:] = ln.gain0, ln.gain, ln.ls
                 at += width * m * geo.out_len
-            plans.append((geo, width, ks, lanes, fin))
+                blocks += m
+            # each block's channel assignment, as the parse read it
+            asgn = np.concatenate([parsed[k][1][:, 1] for k in ks]).astype(np.int32)
+            plans.append((geo, width, ks, lanes, asgn, fin))
         out = torch.empty(at, dtype=torch.float32, device=dev)
-        states = [flac_dsp_kernel(src, torch.from_numpy(lanes), torch.from_numpy(fin), out, geo)
-                  for geo, _w, _ks, lanes, fin in plans]
+        states = [flac_dsp_kernel(src, torch.from_numpy(lanes), torch.from_numpy(asgn),
+                                  torch.from_numpy(fin), out, geo)
+                  for geo, _w, _ks, lanes, asgn, fin in plans]
         # a fresh array a step, for the FIFOs keep views of it until the next
         # step's pops (_release_windows): pinned up to _PINNED_MAX bytes,
         # where the caching host allocator recycles a block once no view of
@@ -704,7 +723,7 @@ class FlacFleet:
             host = host.copy_(out).numpy()
         else:
             host = out.cpu().numpy()
-        for (geo, width, ks, lanes, _fin), st in zip(plans, states):
+        for (geo, width, ks, lanes, _a, _fin), st in zip(plans, states):
             st = st.cpu().numpy()
             C = geo.channels
             for j, k in enumerate(ks):
@@ -716,7 +735,7 @@ class FlacFleet:
                 self._advance_ramp(ln, T)
                 samples = host[off: off + width * T]
                 self._push_lane(ln, samples.reshape(C, T) if width > 1 else samples)
-        self._windows_new = (host, [parsed[k][0] for _g, _w, ks, _l, _f in plans for k in ks])
+        self._windows_new = (host, [parsed[k][0] for _g, _w, ks, *_t in plans for k in ks])
         return rest
 
     def _release_windows(self):

@@ -70,10 +70,10 @@ records (``recording()``), for they cost a pass over each lane's frames:
 ``frames_asgn_indep``, ``frames_asgn_left_side``, ``frames_asgn_side_right``
 and ``frames_asgn_mid_side`` (parsed frames by channel assignment, mono as
 independent; added inside ``aukit.flac.parse``), and ``dsp_frames_device``,
-``dsp_frames_host`` (the frames of the host route's lanes on each DSP route)
-and ``dsp_lanes_mixed_asgn`` (the numpy route's lanes whose frames this step
-mix channel assignments, which the kernel takes none of; added inside
-``aukit.flac.dsp``).
+``dsp_frames_host`` (the frames of the host route's lanes on each DSP route),
+``dsp_lanes_mixed_asgn`` and ``dsp_lanes_mixed_asgn_device`` (the numpy
+route's and the kernel route's lanes whose frames this step mix channel
+assignments; the kernel reads one a block; added inside ``aukit.flac.dsp``).
 ``Fleet.metrics`` adds up both engines' and the FLAC windows' copies.
 """
 

@@ -1842,6 +1842,9 @@ FLAC_DSP_LANES = 1024  # the radio cell's FLAC stations (portbench radio_fleet: 
 FLAC_DSP_FRAMES = 12  # frames a lane commits a step (the radio's ticks: 11,819 over 1024 lanes)
 FLAC_DSP_STEPS = 3  # lane 0 takes steps 0 and 1's bytes at step 0, step 2's at step 1
 FLAC_DSP_VOLUMES = ((0, 0.5, False), (1, 0.3, True), (5, 1.6, True))  # (lane, volume, ramp)
+# one step of the CD radio (portbench flac_cd.cd_live): its stations, and the
+# 4096-sample blocks of 44.1 kHz a station commits a one-second tick
+FLAC_CD_LANES, FLAC_CD_BLOCKS = 512, 11
 # float64 operations a sample of the 48 kHz identity lanes, counted from
 # csrc/flac_dsp.cu: the decode's conversion and its multiply by 2^-depth
 # (2), the alpha multiply (1), eight doubling passes of a multiply and an
@@ -1868,14 +1871,17 @@ def phase_flac_f64_dsp() -> tuple[dict, float, dict]:
     pinned block of windows at most (the pinned bytes they hold after each
     step, and the caching host allocator's, printed); (3) the last step's
     launch again by CUDA events, beside its bytes bound and the plain
-    version's time on the card, their outputs equal. -> (its timing row,
+    version's time on the card, their outputs equal; (4) one CD radio step
+    the same way, FLAC_CD_LANES stereo 44.1 kHz lanes of FLAC_CD_BLOCKS
+    blocks mixed to mono, each block's channel assignment drawn from the
+    four of ``flac -m``. -> (the radio step's timing row,
     max |error|, the launches of (2)'s steps: counts zeroed just before
     them and read just after)."""
-    for name, restored, lanes, fin, numel, geo in \
+    for name, restored, lanes, asgn, fin, numel, geo in \
             load_test_module("torch_kernel_cases").flac_dsp_cases("cuda"):
         out, want_out = torch.full((numel,), -999.0, device="cuda"), torch.full((numel,), -999.0)
-        state = kd.flac_dsp_kernel(restored, lanes, fin, out, geo)
-        want = kd.flac_dsp_ref(restored.cpu(), lanes, fin, want_out, geo)
+        state = kd.flac_dsp_kernel(restored, lanes, asgn, fin, out, geo)
+        want = kd.flac_dsp_ref(restored.cpu(), lanes, asgn, fin, want_out, geo)
         equal = torch.equal(out.cpu(), want_out) and torch.equal(state.cpu(), want)
         say("flac_f64_dsp_case", case=name, lanes=len(lanes), equal=equal)
         check(equal, f"flac_dsp_f64 kernel == plain version on {name}")
@@ -1970,22 +1976,46 @@ def phase_flac_f64_dsp() -> tuple[dict, float, dict]:
     check(all(h["blocks"] <= 1 for h in held) and copied > 0,
           f"the FIFOs view one step's pinned block at most, lane 0's backlog copied ({held})")
 
-    restored, lanes, fin, out, geo = recorded[0]
-    kernel(restored, lanes, fin, out, geo)
-    ms = min(event_ms(lambda: kernel(restored, lanes, fin, out, geo), 10) for _ in range(2))
-    plain_out = torch.full_like(out, -999.0)
-    plain_ms = event_ms(lambda: kd.flac_dsp_ref(restored, lanes, fin, plain_out, geo), 1)
-    err = float((out - plain_out).abs().max())
-    blocks = int(lanes[:, 1].sum())
-    samples_in = blocks * geo.block * (geo.channels if geo.asgn <= 7 else 2)
-    samples_out = blocks * geo.out_len * (geo.channels if geo.out_mode == "multi" else 1)
-    nbytes = samples_in * 8 + samples_out * 4 + lanes.numel() * 8 + fin.numel() * 8
-    say("time", kernel="flac_dsp_f64", lanes=len(lanes), blocks=blocks, samples=samples_in,
-        ms=round(ms, 4), plain_ms=round(plain_ms, 2), max_abs_err_vs_plain=err,
-        gsamples_per_s=round(samples_in / ms / 1e6, 2))
-    check(err == 0, "the recorded step's launch == the plain version on the card")
+    def timed_step(name: str, args: tuple) -> tuple[float, float, float, int, int]:
+        """One launch again: (the kernel's ms by CUDA events, the plain
+        version's ms on the card, max |kernel - plain|, bytes, samples in),
+        printed."""
+        restored, lanes, asgn, fin, out, geo = args
+        kernel(*args)
+        ms = min(event_ms(lambda: kernel(*args), 10) for _ in range(2))
+        plain_out = torch.full_like(out, -999.0)
+        plain_ms = event_ms(lambda: kd.flac_dsp_ref(restored, lanes, asgn, fin, plain_out, geo),
+                            1)
+        err = float((out - plain_out).abs().max())
+        blocks = int(lanes[:, 1].sum())
+        samples_in = blocks * geo.block * geo.channels
+        samples_out = blocks * geo.out_len * (geo.channels if geo.out_mode == "multi" else 1)
+        nbytes = (samples_in * 8 + samples_out * 4 + lanes.numel() * 8 + asgn.numel() * 4
+                  + fin.numel() * 8)
+        say("time", kernel=name, lanes=len(lanes), blocks=blocks, samples=samples_in,
+            ms=round(ms, 4), plain_ms=round(plain_ms, 2), max_abs_err_vs_plain=err,
+            gsamples_per_s=round(samples_in / ms / 1e6, 2))
+        check(err == 0, f"{name}: the launch == the plain version on the card")
+        return ms, plain_ms, err, nbytes, samples_in
+
+    ms, plain_ms, err, nbytes, samples_in = timed_step("flac_dsp_f64", recorded[0])
     row = timing("flac_dsp_f64", ms, plain_ms, samples_in * FLAC_DSP_OPS * 2, nbytes)
-    return row, err, {"flac_dsp_f64": launched}
+
+    L, m, n = FLAC_CD_LANES, FLAC_CD_BLOCKS, FLAC_N
+    rng = np.random.default_rng(21)
+    asgn = rng.choice([1, 8, 9, 10], L * m).astype(np.int32)
+    geo = kd.geometry(44100, 2, 16, n, asgn, 48000, "linear", "mix", fir_alpha(44100, 48000))
+    lanes = np.stack([np.arange(L) * m * 2 * n, np.full(L, m), np.arange(L) * m * geo.out_len,
+                      np.zeros(L), np.zeros(L), np.arange(L) * m], axis=1).astype(np.int64)
+    fin = np.concatenate([np.ones((L, 2)), rng.standard_normal((L, 2)) * 0.3], axis=1)
+    cd = (torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, L * m * 2 * n)).cuda(),
+          torch.from_numpy(lanes), torch.from_numpy(asgn), torch.from_numpy(fin),
+          torch.empty(L * m * geo.out_len, dtype=torch.float32, device="cuda"), geo)
+    cd_ms, _p, cd_err, cd_bytes, _s = timed_step("flac_dsp_f64_cd", cd)
+    cd_bound, by = bound_ms(0, cd_bytes)
+    say("bound", kernel="flac_dsp_f64_cd", ms=round(cd_ms, 4), bound_ms=round(cd_bound, 4),
+        bound_by=by, share_of_bound=round(cd_bound / cd_ms, 4))
+    return row, max(err, cd_err), {"flac_dsp_f64": launched}
 
 
 # -- the write path: kernel (c) and the transcode ---------------------------------------------

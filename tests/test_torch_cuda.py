@@ -443,20 +443,21 @@ def test_iir_zero_kernel_matches_plain(rows, T, alpha):
 @pytest.mark.parametrize("name", FLAC_DSP_CASES)
 def test_flac_dsp_kernel_matches_plain(name):
     """The FLAC lanes' float64 DSP kernel against its plain version on the
-    CPU: every channel assignment and out mode, depths 8-24, identity,
-    linear and none, ramps and the sign wrap; outputs (the gaps between
+    CPU: every channel assignment, lanes whose blocks mix them, every out
+    mode, depths 8-24, identity, linear and none, ramps and the sign wrap;
+    outputs (the gaps between
     lanes untouched) and states bit-equal, one launch."""
     from aukit_tpu_torch.kernels import flac_dsp_kernel, flac_dsp_ref
 
-    _, restored, lanes, fin, numel, geo = next(c for c in kernel_cases.flac_dsp_cases("cuda")
-                                               if c[0] == name)
+    _, restored, lanes, asgn, fin, numel, geo = next(
+        c for c in kernel_cases.flac_dsp_cases("cuda") if c[0] == name)
     out = torch.full((numel,), -999.0, device="cuda")
     want_out = torch.full((numel,), -999.0)
     launches = flac_dsp_kernel.launches
-    state = flac_dsp_kernel(restored, lanes, fin, out, geo)
+    state = flac_dsp_kernel(restored, lanes, asgn, fin, out, geo)
     torch.cuda.synchronize()
     assert flac_dsp_kernel.launches == launches + 1
-    want = flac_dsp_ref(restored.cpu(), lanes, fin, want_out, geo)
+    want = flac_dsp_ref(restored.cpu(), lanes, asgn, fin, want_out, geo)
     assert torch.equal(out.cpu(), want_out) and torch.equal(state.cpu(), want)
 
 

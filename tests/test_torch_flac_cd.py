@@ -154,43 +154,53 @@ def drive_counted(fleet, datas, chunks) -> None:
 
 
 NEW_COUNTERS = ("dsp_frames_device", "dsp_frames_host", "dsp_lanes_mixed_asgn",
-                "frames_asgn_indep", "frames_asgn_left_side", "frames_asgn_side_right",
-                "frames_asgn_mid_side")
+                "dsp_lanes_mixed_asgn_device", "frames_asgn_indep", "frames_asgn_left_side",
+                "frames_asgn_side_right", "frames_asgn_mid_side")
 
 
 def test_assignment_and_route_counters_add_up():
-    """With the kernel's route on (its plain version on the CPU), a lane fed
-    a few kilobytes a step commits a frame or none, of one assignment, and
-    takes the kernel; a lane fed whole commits frames of mixed assignments
-    and takes numpy. Under a profiler the frames on each route add up to the
-    frames parsed, the assignments' counts too, and the mixed lane counts;
-    without one the new counters stay 0."""
+    """With the kernel's route on (its plain version on the CPU): a lane fed
+    a few kilobytes a step commits a frame or none and takes the kernel; a
+    lane fed a track of whole frames at once commits frames of mixed
+    assignments and takes the kernel too; a lane fed a track whose last
+    frame is short at once takes numpy (two block sizes in one step). Under
+    a profiler the frames on each route add up to the frames parsed, the
+    assignments' counts too, each route's mixed lanes count, on the
+    ``aukit.flac.dsp`` records as in the metrics; without one the new
+    counters stay 0."""
     from aukit_tpu_torch.utils import trace
 
-    trks = [cd_track(21), cd_track(22)]
+    trks = [cd_track(21), cd_track(22, 32 * cd_stations.BLOCK / cd_stations.RATE),
+            cd_track(23)]
+    assert trks[1].frame_samples[-1] == cd_stations.BLOCK
+    assert 0 < trks[2].frame_samples[-1] < cd_stations.BLOCK
+    assert all(len(set(t.asgn.tolist())) > 1 for t in trks[1:])
     datas = [t.stream(0) for t in trks]
     counts = {}
     for profiled in (False, True):
-        fleet = FlacFleet(2, device="cpu")
+        fleet = FlacFleet(3, device="cpu")
         fleet._card_dsp = lambda: True
         trace.clear_span_records()
         if profiled:
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-                drive_counted(fleet, datas, [3000, 1 << 22])
+                drive_counted(fleet, datas, [3000, 1 << 22, 1 << 22])
         else:
-            drive_counted(fleet, datas, [3000, 1 << 22])
+            drive_counted(fleet, datas, [3000, 1 << 22, 1 << 22])
         counts[profiled] = fleet.metrics
     assert all(getattr(counts[False], k) == 0 for k in NEW_COUNTERS)
     m = counts[True]
     assert m.frames_parsed == sum(t.frames for t in trks)
     assert m.dsp_frames_device + m.dsp_frames_host == m.frames_parsed
-    assert m.dsp_frames_device > 0 and m.dsp_frames_host >= trks[1].frames
+    assert m.dsp_frames_device >= trks[0].frames - 1 + trks[1].frames
+    assert m.dsp_frames_host >= trks[2].frames
     by_asgn = [m.frames_asgn_indep, m.frames_asgn_left_side, m.frames_asgn_side_right,
                m.frames_asgn_mid_side]
     assert by_asgn == [int(sum((t.asgn == a).sum() for t in trks)) for a in (1, 8, 9, 10)]
-    assert m.dsp_lanes_mixed_asgn >= 1
+    assert m.dsp_lanes_mixed_asgn_device == 1 and m.dsp_lanes_mixed_asgn == 1
     dsp = [r for r in trace.span_records() if r.name == "aukit.flac.dsp"]
-    assert sum(r.counts.get("dsp_lanes_mixed_asgn", 0) for r in dsp) == m.dsp_lanes_mixed_asgn
+    for k in ("dsp_lanes_mixed_asgn", "dsp_lanes_mixed_asgn_device", "dsp_lanes_device",
+              "dsp_lanes_host"):
+        assert sum(r.counts.get(k, 0) for r in dsp) == getattr(m, k)
     numpy_route = [r for r in trace.span_records() if r.name == "aukit.flac.dsp.numpy"]
     assert numpy_route and {r.parent for r in numpy_route} == {"aukit.flac.dsp"}
 

@@ -25,6 +25,7 @@ from aukit_tpu_torch.codecs import flac
 from aukit_tpu_torch.kernels.flac_cuda import lpc_restore_kernel, order_bucket
 from aukit_tpu_torch.stream import flac_fleet as ff
 from aukit_tpu_torch.stream.flac_fleet import FlacFleet
+from portbench.inputs import cd_stations
 from tests import fixtures
 from tests.test_flac_fleet import make_flac
 from tests.torch_kernel_cases import flac_dsp_cases
@@ -238,30 +239,32 @@ def test_flac_dsp_plain_equals_host_dsp(name):
     """The kernel's plain version on its cases (``flac_dsp_cases``) against
     ``FlacFleet._host_dsp`` on the same restored samples, lane states and
     gains: every lane's samples, lowpass states and resample history bit
-    for bit, and nothing written outside the lanes' outputs."""
-    _, restored, lanes, fin, numel, geo = next(c for c in flac_dsp_cases("cpu") if c[0] == name)
+    for bit, and nothing written outside the lanes' outputs. Each lane's
+    frames take their channel assignments from the case's per-block
+    table."""
+    _, restored, lanes, asgn, fin, numel, geo = next(c for c in flac_dsp_cases("cpu")
+                                                     if c[0] == name)
     C, n = geo.channels, geo.block
     multi = geo.out_mode == "multi"
     out = torch.full((numel,), -999.0)
-    state = kernels.flac_dsp_ref(restored, lanes, fin, out, geo).numpy()
+    state = kernels.flac_dsp_ref(restored, lanes, asgn, fin, out, geo).numpy()
     fleet = port_fleet(len(lanes), mono=not multi, channels=C,
                        interpolation="linear" if geo.linear else "none")
     rng = np.random.default_rng(5)
-    nsubs = C if geo.asgn <= 7 else 2
     parsed, segments = [], []
-    for j, (in_off, m, _o, ramp_pos, ramp_len) in enumerate(lanes.tolist()):
+    for j, (in_off, m, _o, ramp_pos, ramp_len, a_off) in enumerate(lanes.tolist()):
         ln = fleet._lanes[j]
         ln.rate, ln.channels, ln.depth, ln.alpha = geo.rate, C, geo.depth, geo.alpha
         ln.last = rng.standard_normal((C, 2))  # none and linear never read it
         ln.ls = fin[j, 2:].numpy().copy()
         ln.gain0, ln.gain = float(fin[j, 0]), float(fin[j, 1])
         ln.ramp_pos, ln.ramp_len = ramp_pos, ramp_len
-        parsed.append((j, np.tile([n, geo.asgn], (m, 1)), {"block": np.full(m * nsubs, n)},
-                       None, None))
-        segments.append(restored.numpy()[in_off: in_off + m * nsubs * n])
+        fm = np.stack([np.full(m, n), asgn.numpy()[a_off: a_off + m]], axis=1)
+        parsed.append((j, fm, {"block": np.full(m * C, n)}, None, None))
+        segments.append(restored.numpy()[in_off: in_off + m * C * n])
     fleet._host_dsp(parsed, segments)
     written = np.zeros(numel, bool)
-    for j, (_i, m, out_off, _p, _l) in enumerate(lanes.tolist()):
+    for j, (_i, m, out_off, _p, _l, _a) in enumerate(lanes.tolist()):
         ln = fleet._lanes[j]
         T = m * geo.out_len
         want = np.concatenate(list(ln.fifo), axis=-1)
@@ -416,6 +419,52 @@ def test_card_dsp_ragged_fleet_equals_numpy_route():
     assert m.dsp_lanes_device + m.dsp_lanes_host == sum(decoded)
     assert m.dsp_lanes_device > 0 and m.dsp_lanes_host >= 3
     assert kernels.flac_dsp_ref.calls > 0
+
+
+# -- CD rips: stereo frames that mix channel assignments (flac -5 -m) ----------------------
+
+def cd_streams():
+    """Three ``flac -5`` CD tracks (``portbench/inputs/cd_stations.py``)
+    whose frames mix all four stereo assignments: one of 32 whole frames,
+    one whose last frame is short, and that one joined at its 5th frame."""
+    whole = cd_stations.CdTrack(np.random.default_rng(31),
+                                32 * cd_stations.BLOCK / cd_stations.RATE)
+    short = cd_stations.CdTrack(np.random.default_rng(32), 3.0)
+    return [whole.stream(), short.stream(), short.stream(5)]
+
+
+CD_FEEDS = [pytest.param(chunk, kw, id=f"{feed}_{out}")
+            for chunk, feed in ((60000, "chunks"), (1 << 24, "whole"))
+            for kw, out in (({}, "mono"), ({"mono": False}, "stereo"))]
+
+
+@pytest.mark.parametrize("chunk,kw", CD_FEEDS)
+def test_host_route_cd_tracks_match_jax(chunk, kw):
+    """Streams whose frames mix channel assignments, fed about seven frames
+    a step or whole, mixed to mono or kept stereo: the port's host route
+    equals the JAX fleet's step by step, checkpoints included."""
+    run_both(cd_streams(), chunk=chunk, **kw)
+
+
+@pytest.mark.parametrize("chunk,kw", CD_FEEDS)
+def test_card_dsp_cd_tracks_equal_numpy_route(chunk, kw, monkeypatch):
+    """The f64 DSP kernel's route (its plain version) on streams whose frames
+    mix channel assignments equals the numpy route bit for bit, and takes
+    every lane of a step whose frames share one block size, whatever their
+    assignments: only the steps that hold a track's short last frame with
+    others go to numpy."""
+    routes = []
+    kernel_dsp = FlacFleet._kernel_dsp
+
+    def recorded(self, parsed, restored, voffs):
+        rest = kernel_dsp(self, parsed, restored, voffs)
+        routes.extend((p[1], k in rest) for k, p in enumerate(parsed))
+        return rest
+
+    monkeypatch.setattr(FlacFleet, "_kernel_dsp", recorded)
+    assert_card_dsp_equals_numpy(cd_streams(), chunk=chunk, **kw)
+    assert all(on_numpy == (len(set(fm[:, 0])) > 1) for fm, on_numpy in routes)
+    assert any(not on_numpy and len(set(fm[:, 1])) > 1 for fm, on_numpy in routes)
 
 
 # -- the device routes --------------------------------------------------------------------

@@ -619,44 +619,71 @@ FLAC_DSP_SPECS = (
 )
 
 
+# lanes whose blocks mix the stereo assignments of ``flac -m`` (independent,
+# left/side, side/right, mid/side), lane 0 changing it on every block:
+# (name, block, depth, rate, linear, out_mode, lanes)
+FLAC_DSP_MIXED_SPECS = (
+    ("mixed_asgn_44k1_mix", 4096, 16, 44100, True, "mix", 6),
+    ("mixed_asgn_44k1_multi", 1024, 16, 44100, True, "multi", 5),
+    ("mixed_asgn_32k_mix", 1152, 24, 32000, True, "mix", 5),
+    ("mixed_asgn_32k_odd_block_multi", 520, 24, 32000, False, "multi", 4),
+)
+STEREO_ASSIGNMENTS = (1, 8, 9, 10)
+
+
+def _flac_dsp_case(rng, C, n, depth, rate, out_mode, m, asgn_of):
+    """One case's (restored int64[N], lanes int64[L, 6], asgn int32, fin
+    float64[L, 2 + C], out's length) for lanes of ``m`` blocks, lane j's
+    assignments ``asgn_of(j, m[j])``."""
+    L = len(m)
+    out_len = n * 48000 // rate
+    width = C if out_mode == "multi" else 1
+    in_off = np.cumsum(rng.integers(0, 8, L) + np.concatenate([[0], m[:-1] * C * n]))
+    out_off = np.cumsum(rng.integers(0, 8, L) + np.concatenate([[0], m[:-1] * width * out_len]))
+    N = int(in_off[-1] + m[-1] * C * n)
+    restored = rng.integers(-(1 << depth), 1 << depth, N)
+    ramp_len = np.where(np.arange(L) % 2 == 1, 48000, 0)
+    ramp_pos = np.where(ramp_len > 0, 48000 - rng.integers(1, 3 * out_len, L), 0)
+    gain = rng.uniform(0.0, 2.0, L)
+    gain[0] = 1.0
+    gain0 = np.where(ramp_len > 0, rng.uniform(0.0, 2.0, L), gain)
+    if L > 3:
+        gain0[3] = gain[3]  # ramping between equal gains: the scalar
+    a_off = np.concatenate([[0], np.cumsum(m[:-1])])
+    lanes = np.stack([in_off, m, out_off, ramp_pos, ramp_len, a_off], axis=1).astype(np.int64)
+    asgn = np.concatenate([asgn_of(j, int(m[j])) for j in range(L)]).astype(np.int32)
+    fin = np.concatenate([gain0[:, None], gain[:, None], rng.standard_normal((L, C)) * 0.3],
+                         axis=1)
+    return (torch.tensor(restored, dtype=torch.int64), torch.from_numpy(lanes),
+            torch.from_numpy(asgn), torch.from_numpy(fin),
+            int(out_off[-1] + m[-1] * width * out_len))
+
+
 def flac_dsp_cases(device="cuda"):
-    """-> (name, restored int64[N] on ``device``, lanes int64[L, 5] and fin
-    float64[L, 2 + C] on the CPU, out's length, DspGeometry) of the FLAC
-    lanes' float64 DSP kernel: every channel assignment, mono, stereo and 3
-    channels in each out mode, depths 8-24, identity, linear and none, an
-    odd block size; 1-4 blocks a lane, gaps between the lanes' samples and
-    outputs, restored values over the whole two's-complement range of the
-    depth (the sign wrap), lowpass states, constant gains (1.0 among them),
-    ramps that end inside a lane's output, a ramp whose two gains are
-    equal, and ramps to 0.3 that end blocks before a lane's last."""
+    """-> (name, restored int64[N] on ``device``, lanes int64[L, 6], asgn
+    int32 and fin float64[L, 2 + C] on the CPU, out's length, DspGeometry)
+    of the FLAC lanes' float64 DSP kernel: every channel assignment, mono,
+    stereo and 3 channels in each out mode, depths 8-24, identity, linear
+    and none, an odd block size; 1-4 blocks a lane, gaps between the lanes'
+    samples and outputs, restored values over the whole two's-complement
+    range of the depth (the sign wrap), lowpass states, constant gains (1.0
+    among them), ramps that end inside a lane's output, a ramp whose two
+    gains are equal, ramps to 0.3 that end blocks before a lane's last, and
+    stereo lanes of 2-10 blocks whose assignments change from block to block
+    (``FLAC_DSP_MIXED_SPECS``)."""
     from aukit_tpu_torch.kernels.flac_dsp_cuda import DspGeometry
     from aukit_tpu_torch.parallel.pipeline import fir_alpha
 
+    def on(case):
+        return (case[0].to(device), *case[1:])
+
     rng = np.random.default_rng(61)
     for name, C, n, asgn, depth, rate, linear, out_mode, L in FLAC_DSP_SPECS:
-        out_len = n * 48000 // rate
-        nsubs = C if asgn <= 7 else 2
-        width = C if out_mode == "multi" else 1
-        m = rng.integers(1, 5, L)
-        in_off = np.cumsum(rng.integers(0, 8, L) + np.concatenate([[0], m[:-1] * nsubs * n]))
-        out_off = np.cumsum(rng.integers(0, 8, L) + np.concatenate([[0], m[:-1] * width * out_len]))
-        N = int(in_off[-1] + m[-1] * nsubs * n)
-        restored = rng.integers(-(1 << depth), 1 << depth, N)
-        ramp_len = np.where(np.arange(L) % 2 == 1, 48000, 0)
-        ramp_pos = np.where(ramp_len > 0, 48000 - rng.integers(1, 3 * out_len, L), 0)
-        gain = rng.uniform(0.0, 2.0, L)
-        gain[0] = 1.0
-        gain0 = np.where(ramp_len > 0, rng.uniform(0.0, 2.0, L), gain)
-        if L > 3:
-            gain0[3] = gain[3]  # ramping between equal gains: the scalar
-        lanes = np.stack([in_off, m, out_off, ramp_pos, ramp_len], axis=1).astype(np.int64)
-        fin = np.concatenate([gain0[:, None], gain[:, None], rng.standard_normal((L, C)) * 0.3],
-                             axis=1)
-        geo = DspGeometry(C, n, asgn, depth, rate, 48000, out_len, linear, out_mode,
+        case = _flac_dsp_case(rng, C, n, depth, rate, out_mode, rng.integers(1, 5, L),
+                              lambda _j, k, a=asgn: np.full(k, a))
+        geo = DspGeometry(C, n, depth, rate, 48000, n * 48000 // rate, linear, out_mode,
                           float(fir_alpha(rate, 48000)))
-        yield (name, torch.tensor(restored, dtype=torch.int64, device=device),
-               torch.from_numpy(lanes), torch.from_numpy(fin),
-               int(out_off[-1] + m[-1] * width * out_len), geo)
+        yield (name, *on(case), geo)
     # ramps to 0.3 over a second that end inside block 10 of a lane's 12
     # blocks of 44.1 kHz (4458 samples each at 48 kHz): samples after the
     # end in that block take g0 + (g1 - g0) * 1.0, which is not 0.3 in
@@ -667,14 +694,27 @@ def flac_dsp_cases(device="cuda"):
     out_len = n * 48000 // rate
     restored = rng.integers(-(1 << 16), 1 << 16, L * m * n)
     lanes = np.stack([np.arange(L) * m * n, np.full(L, m), np.arange(L) * m * out_len,
-                      [0, 0, 1000], np.full(L, 48000)], axis=1).astype(np.int64)
+                      [0, 0, 1000], np.full(L, 48000), np.arange(L) * m], axis=1).astype(np.int64)
     fin = np.concatenate([np.array([[1.0], [1e20], [1.0]]), np.full((L, 1), 0.3),
                           rng.standard_normal((L, 1)) * 0.3], axis=1)
-    geo = DspGeometry(1, n, 0, 16, rate, 48000, out_len, True, "first",
+    geo = DspGeometry(1, n, 16, rate, 48000, out_len, True, "first",
                       float(fir_alpha(rate, 48000)))
     yield ("ramps_to_0.3_end_before_last_block",
            torch.tensor(restored, dtype=torch.int64, device=device), torch.from_numpy(lanes),
-           torch.from_numpy(fin), L * m * out_len, geo)
+           torch.zeros(L * m, dtype=torch.int32), torch.from_numpy(fin), L * m * out_len, geo)
+
+    def mixed(j, k):
+        if j == 0:  # a new assignment on every block
+            return np.resize(rng.permutation(STEREO_ASSIGNMENTS), k)
+        return rng.choice(STEREO_ASSIGNMENTS, k)
+
+    rng = np.random.default_rng(62)
+    for name, n, depth, rate, linear, out_mode, L in FLAC_DSP_MIXED_SPECS:
+        case = _flac_dsp_case(rng, 2, n, depth, rate, out_mode,
+                              np.concatenate([[4 + L], rng.integers(2, 10, L - 1)]), mixed)
+        geo = DspGeometry(2, n, depth, rate, 48000, n * 48000 // rate, linear, out_mode,
+                          float(fir_alpha(rate, 48000)))
+        yield (name, *on(case), geo)
 
 
 # the block decodes the stream iterators make, by the kernel each one
